@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version: ``pq_lookup`` (ADC), ``l2_dist`` (exact re-ranking distances),
+``fused_traversal`` (one fused stage-A round).  ``_build`` compiles
+``repro_torch/csrc/*.cu`` on first use and counts launches."""
+from repro_torch.kernels._build import LAUNCHES, reset_launches
+
+__all__ = ["LAUNCHES", "reset_launches"]

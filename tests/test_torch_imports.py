@@ -1,0 +1,62 @@
+"""Import guard: the port reaches neither JAX nor the reference package.
+
+Every module of ``repro_torch``, and ``chip_smoke.py`` up to its
+``main``, is imported in a fresh interpreter where ``jax`` and ``repro``
+are poisoned (``sys.modules[name] = None`` makes any import of them
+raise).  Importing builds no kernel.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+GUARD = textwrap.dedent("""
+    import importlib, importlib.util, pkgutil, sys
+    for name in ("jax", "jaxlib", "repro"):
+        sys.modules[name] = None
+    sys.path.insert(0, {src!r})
+    import repro_torch
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert callable(smoke.main)
+    from repro_torch.kernels import _build
+    assert not _build._LIBS, "a kernel was built or loaded at import time"
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print(len(names))
+""")
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = GUARD.format(src=os.path.join(REPO, "src"), smoke=os.path.join(REPO, "chip_smoke.py"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 18  # every module of the package was reached
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Without a CUDA device the smoke run exits non-zero and prints no
+    result line."""
+    code = textwrap.dedent(f"""
+        import sys, runpy, torch
+        torch.cuda.is_available = lambda: False
+        sys.argv = ["chip_smoke.py"]
+        runpy.run_path({os.path.join(REPO, "chip_smoke.py")!r}, run_name="__main__")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
