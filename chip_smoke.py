@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's main path — load a saved index, run gated filtered
-search in the memory tier — at SIFT1M scale through the hand-written CUDA
-kernels, and holds every kernel against its plain PyTorch version on the
-card.  Phases, each printing its own lines:
+Drives the port's paths — load a saved index, run gated filtered search
+on the memory tier and off the index file on the disk tier (synchronous
+and pipelined), and the brute-force PQ scan — at SIFT1M scale through the
+hand-written CUDA kernels, and holds every kernel against its plain
+PyTorch version on the card.  Phases, each printing its own lines:
 
   1. device: the card's name and power limit (``nvidia-smi``), torch and
      CUDA versions; TF32 off for matrix products and convolutions;
-  2. kernels against their plain versions at the main path's shapes
-     (ADC both entries, L2 tree bit for bit and expanded within tolerance,
-     the fused round bit for bit on all 11 fields in all five modes,
-     adversarial rounds included);
+  2. kernels against their plain versions at the paths' shapes (ADC both
+     entries, L2 tree bit for bit and expanded within tolerance, the fused
+     round bit for bit on all 11 fields in all five modes, adversarial
+     rounds included, the brute-force scan over 1,000,000 codes and the
+     top-k merge on random and duplicate-heavy keys, bit for bit);
   3. a 1M x 128 index (BigANN-like data, 10 uniform labels, a norm range
      attribute, a degree-64 graph of 48 exact neighbours + 16 random
      links, PQ with 32 chunks) written with the port's writer and loaded
-     with ``GateANNEngine.load`` on the card;
-  4. 1,024 queries in batches of 256: gate unfused, gate fused and post,
-     with recall@10 against filtered ground truth computed on the card;
-  5. card vs CPU on a 20,000-vector index in all five modes;
-  6. one JSON line of per-kernel launches, times and bounds;
-  7. the last line, ``{"ok": true, "device": {...}}``.
+     with ``GateANNEngine.load`` on the card; the file system it lies on is
+     printed, and a tmpfs temporary directory is replaced by ``build/``;
+  4. 1,024 queries in batches of 256 on the memory tier: gate unfused,
+     gate fused and post, with recall@10 against filtered ground truth
+     computed on the card;
+  5. the same queries off the index file (``store_tier="disk"``), the page
+     cache dropped before each: gate at depth 1, gate unfused and fused at
+     depth 4 and post at depth 4, each equal to the memory tier bit for
+     bit, its reads reconciled with its n_ios;
+  6. the brute-force PQ scan: every code scored by ``pq.adc_lookup``,
+     filtered, top-10 by two levels of ``kernels.ops.topk_merge``;
+  7. card vs CPU on a 20,000-vector index in all five modes;
+  8. one JSON line of per-kernel launches by path, times and bounds;
+  9. the last line, ``{"ok": true, "device": {...}}``.
 
 Any mismatch raises and the script exits non-zero.  It needs a CUDA
 device; without one it exits with code 2 and prints no result.
@@ -51,7 +61,10 @@ from repro_torch.data import make_bigann_like, make_queries, uniform_labels  # n
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_traversal as ftk  # noqa: E402
 from repro_torch.kernels import l2_dist as l2k  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import pq_lookup as pqk  # noqa: E402
+from repro_torch.kernels import topk_merge as tkk  # noqa: E402
+from repro_torch.store.disk import DiskRecordStore  # noqa: E402
 from repro_torch.store.format import write_index  # noqa: E402
 
 MODES = ("gate", "post", "early", "pre_naive", "unfiltered")
@@ -62,6 +75,9 @@ SPIN_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock: cycles for torch.cuda._sleep
 DIM, DEGREE, EXACT_NBRS, PQ_CHUNKS, R_MAX = 128, 64, 48, 32, 32
 BATCH, N_QUERIES, N_LABELS = 256, 1024, 10
 SEARCH = dict(search_l=64, beam_width=8, result_k=10)
+DEPTH = 4  # the pipelined loop's depth on the disk tier
+SCAN_BATCH, SCAN_CHUNK = 64, 1000  # brute-force scan: queries a batch, top-k chunk width
+REPO = Path(__file__).resolve().parent
 
 
 def log(phase: str, msg: str) -> None:
@@ -151,7 +167,70 @@ def check_fused(dev, rng) -> None:
         "rounds incl. duplicate ids, all filtered, M=0 and M not a power of two; by-id entry too")
 
 
+def check_scan(dev, n, rng) -> None:
+    b, c, k = SCAN_BATCH, PQ_CHUNKS, 256
+    lut = torch.from_numpy((rng.random((b, c, k)) * 1000).astype(np.float32)).to(dev)
+    codes = torch.from_numpy(rng.integers(0, k, (n, c)).astype(np.int32)).to(dev)
+    same(pqk.pq_scan(lut, codes), pqk.pq_scan_ref(lut, codes), "pq_scan")
+    log("kernels", f"pq_scan bit-identical: ({b},{c},{k}) LUTs over {n} codes")
+
+
+def topk_keys(rng, b, m, dup: bool):
+    """Random tie-free keys, or duplicate-heavy ones: 10 distinct
+    distances and ids repeated, so whole (dist, id) keys repeat."""
+    if dup:
+        d = rng.integers(0, 10, (b, m)).astype(np.float32)
+        i = rng.integers(0, m // 4, (b, m)).astype(np.int32)
+    else:
+        d = rng.permutation(b * m).reshape(b, m).astype(np.float32) / (b * m)
+        i = rng.integers(0, 1 << 30, (b, m)).astype(np.int32)
+    return d, i
+
+
+def check_topk(dev, rng) -> None:
+    n_checked = 0
+    for m in (8 * (DEGREE + R_MAX), 1000):
+        for dup in (False, True):
+            d, i = (torch.from_numpy(x).to(dev) for x in topk_keys(rng, BATCH, m, dup))
+            for k in (10, 64, 2048):
+                got, want = tkk.topk_merge(d, i, k), tkk.topk_merge_ref(d, i, k)
+                same(got[0], want[0], f"topk_merge dists M={m} k={k} dup={dup}")
+                same(got[1], want[1], f"topk_merge ids M={m} k={k} dup={dup}")
+                n_checked += 1
+    log("kernels", f"topk_merge bit-identical: {n_checked} cases, B={BATCH}, M in (768, 1000), "
+        "k in (10, 64, 2048), random and duplicate-heavy keys")
+
+
 # ---------------------------------------------------------------- phase 3
+def fs_type(path: str) -> str:
+    """The file system type of the mount holding ``path`` (/proc/mounts)."""
+    path, best, kind = os.path.realpath(path), "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt = parts[1].replace("\\040", " ")
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) and len(mnt) > len(best):
+                best, kind = mnt, parts[2]
+    return kind
+
+
+def index_dir() -> str:
+    """Where the index file goes: the temporary directory, unless it is a
+    tmpfs (whose reads are page-cache reads, not SSD reads); then the
+    git-ignored ``build/`` beside the repository."""
+    tmp = tempfile.gettempdir()
+    kind = fs_type(tmp)
+    log("index", f"temporary directory {tmp} is on {kind}")
+    if kind != "tmpfs":
+        return tmp
+    log("index", "tmpfs: its reads would be page-cache reads, not SSD reads; "
+        "the index goes under build/ instead")
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    log("index", f"{build} is on {fs_type(str(build))}")
+    return str(build)
+
+
 def knn_graph(x: torch.Tensor, gen: torch.Generator, block: int = 1024) -> torch.Tensor:
     """(N, DEGREE) int32: EXACT_NBRS exact neighbours in ascending distance
     (self excluded), then DEGREE - EXACT_NBRS seeded random ids."""
@@ -208,18 +287,21 @@ def ground_truth(x: torch.Tensor, labels: torch.Tensor, q: torch.Tensor, target:
 # ---------------------------------------------------------------- phase 4
 class Capture:
     """Records (clones of) the inputs of one mid-search call of each
-    kernel wrapper, so phase 6 times the kernels on real rounds."""
+    kernel wrapper, so phase 8 times the kernels on real calls."""
 
     def __init__(self, at_call: int = 6):
         self.at_call, self.calls, self.args = at_call, {}, {}
         self.saved = []
+        self.launches = {}  # path -> its kernel launches, each counted from 0
+        # the scan path: its third batch's scan and first-level merge
+        self.at = {"pq_scan": 3, "topk_merge": 5}
 
     def wrap(self, module, fn_name: str, key: str):
         real = getattr(module, fn_name)
 
         def recorder(*args, **kwargs):
             self.calls[key] = self.calls.get(key, 0) + 1
-            if self.calls[key] == self.at_call:
+            if self.calls[key] == self.at.get(key, self.at_call):
                 clone = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
                 self.args[key] = (clone, dict(kwargs))
             return real(*args, **kwargs)
@@ -231,11 +313,14 @@ class Capture:
         self.wrap(pqk, "adc_ids", "pq_lookup")
         self.wrap(l2k, "l2_dist", "l2_dist")
         self.wrap(ftk, "fused_traversal_round", "fused_traversal")
+        self.wrap(pqk, "pq_scan", "pq_scan")
+        self.wrap(kops, "topk_merge", "topk_merge")
         return self
 
     def __exit__(self, *exc):
         for module, fn_name, real in self.saved:
             setattr(module, fn_name, real)
+        self.saved.clear()
 
 
 def run_search(eng, queries, targets, cfg):
@@ -259,19 +344,28 @@ def run_search(eng, queries, targets, cfg):
     return torch.cat(ids), torch.cat(dists), cat, np.asarray(lat), launches
 
 
-def search_phase(eng, index, card: str) -> Capture:
-    x = index["x"]
-    q_np = make_queries(index["x_np"], N_QUERIES, seed=1)
-    targets_np = np.random.default_rng(2).integers(0, N_LABELS, N_QUERIES).astype(np.int32)
-    q = torch.from_numpy(q_np).to(x.device)
-    targets = torch.from_numpy(targets_np).to(x.device)
-    gt = ground_truth(x, torch.from_numpy(index["labels"]).to(x.device), q, targets)
+def require_launches(cap: Capture, path: str, kernels: tuple, absent: tuple = ()) -> None:
+    for name in kernels:
+        require(cap.launches[path].get(name, 0) > 0, f"{path}: kernel {name} was not launched")
+    for name in absent:
+        require(cap.launches[path].get(name, 0) == 0, f"{path}: kernel {name} ran")
+
+
+def same_run(a, b, what: str) -> None:
+    """Two runs' ids, dists and all six SearchStats bit-identical."""
+    same(a[0], b[0], f"{what} ids")
+    same(a[1], b[1], f"{what} dists")
+    for f in b[2]:
+        same(a[2][f], b[2][f], f"{what} stats.{f}")
+
+
+def search_phase(eng, q, targets, gt, card: str, cap: Capture) -> dict:
     configs = {
         "gate_unfused": SearchConfig(mode="gate", **SEARCH),
         "gate_fused": SearchConfig(mode="gate", use_fused_kernel=True, **SEARCH),
         "post": SearchConfig(mode="post", **SEARCH),
     }
-    with Capture() as cap:  # warm-up batch, untimed: loads the kernels, records real rounds
+    with cap:  # warm-up batch, untimed: loads the kernels, records real rounds
         for cfg in configs.values():
             eng.search(q[:BATCH], filter_kind="label", filter_params=targets[:BATCH],
                        search_config=cfg)
@@ -279,24 +373,17 @@ def search_phase(eng, index, card: str) -> Capture:
 
     # each path's launches are counted from 0 just before it and read just after
     runs = {name: run_search(eng, q, targets, cfg) for name, cfg in configs.items()}
-    launches = {name: run[4] for name, run in runs.items()}
-    want = {"gate_unfused": ("pq_lookup", "l2_dist"), "post": ("pq_lookup", "l2_dist"),
-            "gate_fused": ("pq_lookup", "l2_dist", "fused_traversal")}
-    for path, kernels in want.items():
-        for name in kernels:
-            require(launches[path].get(name, 0) > 0, f"{path}: kernel {name} was not launched")
+    cap.launches.update({name: run[4] for name, run in runs.items()})
     for path in ("gate_unfused", "post"):
-        require(launches[path].get("fused_traversal", 0) == 0, f"{path}: the fused round ran")
+        require_launches(cap, path, ("pq_lookup", "l2_dist"), ("fused_traversal",))
+    require_launches(cap, "gate_fused", ("pq_lookup", "l2_dist", "fused_traversal"))
     n_batches = N_QUERIES // BATCH
-    for path, counts in launches.items():
+    for path in configs:
+        counts = cap.launches[path]
         log("search", f"{path}: launches {json.dumps(counts)} over {n_batches} batches "
             f"({', '.join(f'{k} {v / n_batches:g}' for k, v in counts.items())} a batch)")
 
-    (gi, gd, gs, *_), (fi, fd, fs, *_) = runs["gate_unfused"], runs["gate_fused"]
-    same(fi, gi, "gate fused vs unfused ids")
-    same(fd, gd, "gate fused vs unfused dists")
-    for f in gs:
-        same(fs[f], gs[f], f"gate fused vs unfused stats.{f}")
+    same_run(runs["gate_fused"], runs["gate_unfused"], "gate fused vs unfused")
     log("search", "gate fused == gate unfused: ids, dists and all six SearchStats counters")
     summary = {}
     for name, (ids, dists, st, lat, _) in runs.items():
@@ -335,8 +422,210 @@ def search_phase(eng, index, card: str) -> Capture:
         log("profile", f"{name}, one batch of {BATCH} under torch.profiler on {card}: "
             + json.dumps(summary[name]["profile"]))
     print(json.dumps({"search": summary, "card": card}), flush=True)
-    cap.launches = launches
-    return cap
+    return {name: run[:3] for name, run in runs.items()}
+
+
+# ---------------------------------------------------------------- phase 5
+def ssd_phase(path: str, q, targets, mem_runs: dict, card: str, cap: Capture) -> None:
+    """The memory tier's queries served off the index file, each
+    configuration from a dropped page cache."""
+    # max_gap_sectors=0: one read per run of adjacent records, no bridged
+    # gaps (an unbounded bridge reads the whole span between a round's
+    # records, gigabytes at N = 1M)
+    eng = GateANNEngine.load(path, store_tier="disk", max_gap_sectors=0)
+    store = eng.measured_store()
+    log("ssd", f"disk tier: {store.n:,} records of {store.sector_bytes} B in {store.n_shards} "
+        f"segment(s), io_mode {store.io_mode}, max_gap_sectors {store.max_gap_sectors}, "
+        f"{store.reader_threads} reader threads; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    configs = {  # name -> (config, the memory-tier run it must equal)
+        "disk_gate_d1": (SearchConfig(mode="gate", **SEARCH), "gate_unfused"),
+        f"disk_gate_d{DEPTH}": (SearchConfig(mode="gate", pipeline_depth=DEPTH, **SEARCH),
+                                "gate_unfused"),
+        f"disk_gate_fused_d{DEPTH}": (SearchConfig(mode="gate", use_fused_kernel=True,
+                                                   pipeline_depth=DEPTH, **SEARCH), "gate_fused"),
+        f"disk_post_d{DEPTH}": (SearchConfig(mode="post", pipeline_depth=DEPTH, **SEARCH), "post"),
+    }
+    summary, runs = {}, {}
+    for name, (cfg, mem_name) in configs.items():
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)  # DONTNEED leaves dirty pages: a cold run must start clean
+        finally:
+            os.close(fd)
+        store.reset_io_counters()
+        store.drop_page_cache()
+        dropped = store.io_counters()["warm_errors"] == 0
+        log("ssd", f"{name}: file synced, page cache dropped: {'every drop worked' if dropped else 'A DROP FAILED'}")
+        store.reset_io_counters()
+        run = run_search(eng, q, targets, cfg)
+        torch.cuda.synchronize()
+        io = store.io_counters()
+        runs[name] = run
+        cap.launches[name] = run[4]
+        ids, dists, st, lat, _ = run
+        same_run(run, mem_runs[mem_name], f"{name} vs memory tier {mem_name}")
+        n_ios = int(st["n_ios"].sum())
+        require(io["records_read"] == n_ios, f"{name}: records_read {io['records_read']} != sum(n_ios) {n_ios}")
+        require(io["abandoned_tokens"] == 0, f"{name}: {io['abandoned_tokens']} abandoned tokens")
+        if cfg.pipeline_depth > 1:
+            require(io["overlapped_rounds"] > 0, f"{name}: no round overlapped another's read")
+        fused = cfg.use_fused_kernel
+        require_launches(cap, name, ("pq_lookup", "l2_dist") + (("fused_traversal",) if fused else ()),
+                         () if fused else ("fused_traversal",))
+        summary[name] = {
+            "qps": N_QUERIES / float(lat.sum()), "p50_batch_ms": float(np.percentile(lat, 50) * 1e3),
+            "p99_batch_ms": float(np.percentile(lat, 99) * 1e3),
+            **{f"mean_{f}": float(st[f].float().mean()) for f in ("n_ios", "n_tunnels", "n_hops")},
+            "page_cache_dropped": dropped, "launches": run[4],
+            **{k: io[k] for k in ("records_read", "bytes_read", "unique_sectors_read", "syscalls",
+                                  "gap_sectors_read", "read_rounds", "inflight_depth_max",
+                                  "overlapped_rounds", "abandoned_tokens")},
+        }
+        r = summary[name]
+        log("ssd", f"{name}: QPS {r['qps']:.1f}  batch p50 {r['p50_batch_ms']:.2f} ms p99 "
+            f"{r['p99_batch_ms']:.2f} ms  mean n_ios {r['mean_n_ios']:.2f} n_tunnels "
+            f"{r['mean_n_tunnels']:.2f} n_hops {r['mean_n_hops']:.2f}  bytes_read {io['bytes_read']} "
+            f"syscalls {io['syscalls']} gap_sectors_read {io['gap_sectors_read']} "
+            f"inflight_depth_max {io['inflight_depth_max']} overlapped_rounds "
+            f"{io['overlapped_rounds']}  launches {json.dumps(run[4])} on {card}")
+    same_run(runs[f"disk_gate_d{DEPTH}"], runs["disk_gate_d1"], f"disk gate depth {DEPTH} vs depth 1")
+    log("ssd", f"every disk run == its memory-tier run (ids, dists, six stats); depth {DEPTH} == "
+        "depth 1; records_read == sum(n_ios); no abandoned token")
+    d1, d4 = summary["disk_gate_d1"], summary[f"disk_gate_d{DEPTH}"]
+    log("ssd", f"gate depth {DEPTH} over depth 1: {d4['qps'] / d1['qps']:.3f}x QPS; gate mean n_ios "
+        f"{d4['mean_n_ios']:.2f} vs post {summary[f'disk_post_d{DEPTH}']['mean_n_ios']:.2f} "
+        f"({d4['mean_n_ios'] / summary[f'disk_post_d{DEPTH}']['mean_n_ios']:.3f}x)")
+    summary["read_probe"] = read_probe(store, card)
+    for name in ("disk_gate_d1", f"disk_gate_d{DEPTH}"):
+        host_profile(eng, q[:BATCH], targets[:BATCH], configs[name][0], name)
+    # off the path: depth 4 with one reader thread instead of four
+    one = dataclasses.replace(eng, record_store=DiskRecordStore.open(
+        path, device=eng.device, max_gap_sectors=0, reader_threads=1))
+    lat = run_search(one, q, targets, configs[f"disk_gate_d{DEPTH}"][0])[3]
+    one.record_store.close()
+    summary[f"disk_gate_d{DEPTH}"]["one_reader_warm_qps"] = N_QUERIES / float(lat.sum())
+    log("ssd", f"disk_gate_d{DEPTH} with 1 reader thread, page cache not dropped: QPS "
+        f"{N_QUERIES / float(lat.sum()):.1f} on {card}")
+    # off the path: the gate runs again without dropping the page cache
+    for name in ("disk_gate_d1", f"disk_gate_d{DEPTH}"):
+        lat = run_search(eng, q, targets, configs[name][0])[3]
+        summary[name]["warm_qps"] = N_QUERIES / float(lat.sum())
+        log("ssd", f"{name} again, page cache not dropped: QPS {summary[name]['warm_qps']:.1f} "
+            f"(cold {summary[name]['qps']:.1f}) on {card}")
+    for name, (cfg, _) in configs.items():  # warm page cache now: kernel time over the cold p50
+        summary[name]["profile"] = profile_batch(eng, q[:BATCH], targets[:BATCH], cfg,
+                                                 summary[name]["p50_batch_ms"])
+        log("profile", f"{name}, one batch of {BATCH} under torch.profiler on {card}: "
+            + json.dumps(summary[name]["profile"]))
+    print(json.dumps({"ssd": summary, "card": card}), flush=True)
+    store.close()
+
+
+def host_profile(eng, q, targets, cfg, name: str, top: int = 14) -> None:
+    """Off the path: where the host's time goes in one batch (cProfile; on
+    Python 3.12 it sees the reader threads too)."""
+    import cProfile
+    import io
+    import pstats
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    eng.search(q, filter_kind="label", filter_params=targets, search_config=cfg)
+    torch.cuda.synchronize()
+    prof.disable()
+    text = io.StringIO()
+    pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(top)
+    lines = [ln for ln in text.getvalue().splitlines() if ln.strip()]
+    start = next(i for i, ln in enumerate(lines) if "function calls" in ln)
+    for ln in lines[start:]:
+        log("hostprof", f"{name}: {ln.strip()[:150]}")
+
+
+def read_probe(store, card: str) -> dict:
+    """Off the path: this host's record reads alone, 2,048 distinct records
+    as 8 beams of 256, one beam after another and 4 at a time, from a
+    dropped and from a warm page cache (µs per record)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(4)
+    sets = torch.from_numpy(rng.choice(store.n, size=(2, 8, 1, 256), replace=False).astype(np.int32))
+    out = {}
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for cache in ("cold", "warm"):
+            for threads, beams in ((1, sets[0]), (4, sets[1])):
+                if cache == "cold":
+                    store.drop_page_cache()
+                t0 = time.perf_counter()
+                if threads == 1:
+                    for beam in beams:
+                        store.fetch(beam)
+                else:
+                    list(pool.map(store.fetch, beams))
+                torch.cuda.synchronize()
+                out[f"{cache}_{threads}_thread_us_per_record"] = (
+                    (time.perf_counter() - t0) / beams.numel() * 1e6)
+    store.reset_io_counters()
+    log("ssd", "read probe, 2,048 records (8 beams of 256, max_gap_sectors 0), us per record: "
+        + ", ".join(f"{k.replace('_us_per_record', '')} {v:.1f}" for k, v in out.items())
+        + f" on {card}")
+    return out
+
+
+# ---------------------------------------------------------------- phase 6
+def scan_topk(lut, codes, labels, targets, k: int = 10):
+    """Brute-force filtered PQ search: every code scored, non-matching
+    labels sent to the pad distance, then the top-k of each chunk of
+    SCAN_CHUNK codes and the top-k of those."""
+    d = pqm.adc_lookup(lut, codes)
+    d = torch.where(labels[None] == targets[:, None], d, tkk.PAD_DIST)
+    b, n = d.shape
+    chunks = n // SCAN_CHUNK
+    cd, ci = kops.topk_merge(d[:, : chunks * SCAN_CHUNK].reshape(-1, SCAN_CHUNK).contiguous(),
+                             torch.arange(chunks * SCAN_CHUNK, dtype=torch.int32, device=d.device)
+                             .repeat(b).reshape(-1, SCAN_CHUNK), k)
+    cd, ci = cd.reshape(b, -1), ci.reshape(b, -1)
+    if chunks * SCAN_CHUNK < n:  # the ragged tail joins the second level as it is
+        cd = torch.cat([cd, d[:, chunks * SCAN_CHUNK:]], dim=1)
+        ci = torch.cat([ci, torch.arange(chunks * SCAN_CHUNK, n, dtype=torch.int32,
+                                         device=d.device).expand(b, -1)], dim=1)
+    return kops.topk_merge(cd.contiguous(), ci.contiguous(), k)
+
+
+def scan_phase(eng, q, targets, gt, card: str, cap: Capture) -> None:
+    """The brute-force PQ baseline through ``pq.adc_lookup`` and
+    ``kernels.ops.topk_merge`` on the engine's PQ codes."""
+    labels = eng.filters["label"].labels
+    lut = pqm.build_lut(eng.codec, q)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    ids, lat = [], []
+    with cap:  # records the scan's and the merge's inputs for the kernels line
+        for s in range(0, q.shape[0], SCAN_BATCH):
+            t0 = time.perf_counter()
+            _, got = scan_topk(lut[s:s + SCAN_BATCH].contiguous(), eng.codes, labels,
+                               targets[s:s + SCAN_BATCH])
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            ids.append(got)
+    cap.launches["pq_scan_topk"] = dict(_build.LAUNCHES)
+    require_launches(cap, "pq_scan_topk", ("pq_scan", "topk_merge"),
+                     ("pq_lookup", "l2_dist", "fused_traversal"))
+    ids = torch.cat(ids)
+    # the same function from the plain versions on the card, for one batch
+    b0 = slice(0, SCAN_BATCH)
+    d = pqk.pq_scan_ref(lut[b0], eng.codes)
+    d = torch.where(labels[None] == targets[b0, None], d, tkk.PAD_DIST)
+    want = tkk.topk_merge_ref(d, torch.arange(d.shape[1], dtype=torch.int32, device=d.device)
+                              .expand(SCAN_BATCH, -1).contiguous(), 10)[1]
+    same(ids[b0], want, "scan path vs plain versions")
+    rec = recall_at_k(ids, gt, 10)
+    lat = np.asarray(lat)
+    log("scan", f"brute-force PQ scan of {eng.codes.shape[0]:,} codes + two-level topk_merge: "
+        f"recall@10 {rec:.4f} (PQ distances only), {q.shape[0] / float(lat.sum()):.1f} QPS, "
+        f"batch of {SCAN_BATCH} p50 {np.percentile(lat, 50) * 1e3:.2f} ms; launches "
+        f"{json.dumps(cap.launches['pq_scan_topk'])}; first batch == plain versions on {card}")
 
 
 def profile_batch(eng, q, targets, cfg, p50_ms: float, top: int = 8) -> dict:
@@ -366,7 +655,7 @@ def profile_batch(eng, q, targets, cfg, p50_ms: float, top: int = 8) -> dict:
             "top_kernels_ms_calls": {k: [round(ms, 4), n] for k, (ms, n) in ranked}}
 
 
-# ---------------------------------------------------------------- phase 5
+# ---------------------------------------------------------------- phase 7
 def parity_phase(tmp: str, dev, n: int = 20_000) -> None:
     path = os.path.join(tmp, "parity.gann")
     index = build_index(path, n, dev, seed=3)
@@ -388,7 +677,7 @@ def parity_phase(tmp: str, dev, n: int = 20_000) -> None:
         "in all five modes, unfused and fused")
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 8
 def time_ms(fn, reps: int = 50) -> float:
     """Device time per call, by CUDA events around ``reps`` calls.
 
@@ -480,6 +769,46 @@ def kernel_line(cap: Capture) -> list[dict]:
                      plain_ms=time_ms(lambda: ftk.fused_traversal_round_ref(*args, **kw)),
                      bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
                      shape=f"B={b} L={l} M={m} C={c} W={w} P={p} valid_new={n_valid}"))
+    # brute-force scan: lut (B,C,K), the (N,C) code table
+    (lut, codes), _ = cap.args["pq_scan"]
+    b, c, k = lut.shape
+    n = codes.shape[0]
+    err = float((pqk.pq_scan(lut, codes) - pqk.pq_scan_ref(lut, codes)).abs().max())
+    bnd = bound(lut.numel() * 4 + codes.numel() * 4 + b * n * 4, b * n * c)
+    rows.append(dict(name="pq_scan", route="cuda", source="src/repro_torch/csrc/pq_lookup.cu",
+                     replaces="src/repro/kernels/pq_lookup.py:125", launches=total(cap, "pq_scan"),
+                     launches_by_path=by_path(cap, "pq_scan"), max_abs_err=err,
+                     ms=time_ms(lambda: pqk.pq_scan(lut, codes), reps=20),
+                     plain_ms=time_ms(lambda: pqk.pq_scan_ref(lut, codes), reps=5),
+                     bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                     library_note="no single PyTorch call sums per-query LUT entries picked by a "
+                                  "shared code table",
+                     shape=f"B={b} N={n} C={c} K={k}"))
+    # top-k merge at the scan path's first-level shape, timed on tie-free
+    # keys of that shape so that torch.topk computes the same function
+    (d_cap, i_cap, k), _ = cap.args["topk_merge"]
+    b, m = d_cap.shape
+    p = tkk.padded_width(m)
+    kk = min(k, p)
+    rng = np.random.default_rng(9)
+    d, i = (torch.from_numpy(x).to(d_cap.device) for x in topk_keys(rng, b, m, dup=False))
+    got, want = tkk.topk_merge(d_cap, i_cap, k), tkk.topk_merge_ref(d_cap, i_cap, k)
+    err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+    lib = torch.topk(d, min(k, m), dim=1, largest=False)
+    require(bool(torch.equal(lib.values, tkk.topk_merge(d, i, k)[0][:, : min(k, m)])),
+            "torch.topk disagrees with topk_merge on tie-free keys")
+    logp = p.bit_length() - 1
+    bnd = bound(b * m * 8 + b * kk * 8, b * (p // 2) * logp * (logp + 1) // 2)
+    rows.append(dict(name="topk_merge", route="cuda", source="src/repro_torch/csrc/topk_merge.cu",
+                     replaces="src/repro/kernels/topk_merge.py:68",
+                     launches=total(cap, "topk_merge"),
+                     launches_by_path=by_path(cap, "topk_merge"), max_abs_err=err,
+                     ms=time_ms(lambda: tkk.topk_merge(d, i, k), reps=20),
+                     plain_ms=time_ms(lambda: tkk.topk_merge_ref(d, i, k), reps=5),
+                     bound_ms=bnd[0], bound_by=bnd[1],
+                     library_ms=time_ms(lambda: torch.topk(d, min(k, m), dim=1, largest=False),
+                                        reps=20),
+                     shape=f"B={b} M={m} k={k} P={p} (timed on tie-free keys of this shape)"))
     for r in rows:
         require(r["max_abs_err"] == 0.0, f"{r['name']}: kernel differs from its plain version")
     return rows
@@ -511,8 +840,11 @@ def main(argv=None) -> int:
     check_adc(dev, args.n, rng)
     check_l2(dev, rng)
     check_fused(dev, rng)
+    check_scan(dev, args.n, rng)
+    check_topk(dev, rng)
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+    cap = Capture()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=index_dir()) as tmp:
         if args.n != 1_000_000:
             log("index", f"N cut from 1,000,000 to {args.n:,} (--n)")
         path = os.path.join(tmp, "sift1m_like.gann")
@@ -521,11 +853,20 @@ def main(argv=None) -> int:
         eng = GateANNEngine.load(path)
         torch.cuda.synchronize()
         log("index", f"N={args.n:,} D={DIM} R={DEGREE} C={PQ_CHUNKS} r_max={R_MAX}: built in "
-            f"{index['build_s']:.1f} s, written ({index['file_bytes'] / 2**30:.2f} GiB) in "
-            f"{index['write_s']:.1f} s, loaded on {eng.device} in {time.perf_counter() - t0:.1f} s; "
-            f"device memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-        cap = search_phase(eng, index, card)
-        del eng, index
+            f"{index['build_s']:.1f} s, written ({index['file_bytes'] / 2**30:.2f} GiB) to "
+            f"{fs_type(path)} in {index['write_s']:.1f} s, loaded on {eng.device} in "
+            f"{time.perf_counter() - t0:.1f} s; device memory allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        x = index["x"]
+        q = torch.from_numpy(make_queries(index["x_np"], N_QUERIES, seed=1)).to(dev)
+        targets = torch.from_numpy(
+            np.random.default_rng(2).integers(0, N_LABELS, N_QUERIES).astype(np.int32)).to(dev)
+        gt = ground_truth(x, torch.from_numpy(index["labels"]).to(dev), q, targets)
+        del index, x
+        mem_runs = search_phase(eng, q, targets, gt, card, cap)
+        ssd_phase(path, q, targets, mem_runs, card, cap)
+        scan_phase(eng, q, targets, gt, card, cap)
+        del eng, mem_runs
         torch.cuda.empty_cache()
         parity_phase(tmp, dev)
 

@@ -25,6 +25,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import pq_lookup as pqk
+
 
 class PQCodec(NamedTuple):
     """Trained PQ codebooks."""
@@ -94,19 +96,14 @@ def adc_lookup_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 
     lut: (B, C, K), codes: (N, C) -> (B, N) float32.
     """
-    acc = torch.zeros((lut.shape[0], codes.shape[0]), dtype=lut.dtype, device=lut.device)
-    for c in range(lut.shape[1]):
-        acc = acc + lut[:, c, :][:, codes[:, c].long()]
-    return acc
+    return pqk.pq_scan_ref(lut, codes)
 
 
 def adc_lookup(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """Approximate distances over a shared (N, C) code table.
-
-    The plain version on every device for now: the brute-force scan
-    kernel that should serve it (the TPU ``pq_scan``) is not ported yet.
-    """
-    return adc_lookup_ref(lut, codes)
+    """Approximate distances over a shared (N, C) code table: the scan
+    kernel (``kernels.pq_lookup.pq_scan``) for CUDA tensors,
+    ``adc_lookup_ref`` for CPU tensors."""
+    return pqk.pq_scan(lut, codes)
 
 
 def _kmeans_one_chunk(sub: torch.Tensor, k: int, iters: int,

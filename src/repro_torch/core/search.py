@@ -7,22 +7,32 @@ neighbor store), ``post`` (fetch everything, filter afterwards),
 ``early`` (fetch everything, exact distance only on matches),
 ``pre_naive`` (drop non-matching nodes outright) and ``unfiltered``.
 
-The loop is synchronous and lockstep over the batch: ``n_hops`` advances
-for every row on every round, and the loop runs while any row has work
-and every row is under ``max_hops`` — one host sync per round in eager
-PyTorch.  ``use_fused_kernel`` runs stage A as one fused round per
-iteration (``kernels.fused_traversal``) and gives the same ids, distances
-and stats as the unfused loop.
+The loop is lockstep over the batch: ``n_hops`` advances for every row
+on every round, and the loop runs while any row has work and every row
+is under ``max_hops`` — one host sync per round in eager PyTorch.
+``use_fused_kernel`` runs stage A as one fused round per iteration
+(``kernels.fused_traversal``) and gives the same ids, distances and
+stats as the unfused loop.
 
-On a CUDA device the three kernels serve the loop (ADC, exact L2, fused
+On a CUDA device three kernels serve the loop (ADC, exact L2, fused
 round); on the CPU their plain versions do.  ``use_kernel`` keeps the
 reference's meaning for the exact distances: False = the fixed pairwise
 tree of ``_exact_dist``, True = the TPU kernel's expanded form.
 
-The pipelined loops (``pipeline_depth > 1``) need a record store with an
-asynchronous submit/drain pair — the disk tier, a later slice of the
-port.  As in the reference, a store without the pair runs the
-synchronous loop at any depth.
+**Pipelined search** (``pipeline_depth > 1`` with the store's
+asynchronous ``submit``/``drain`` pair, i.e. the disk tier): traversal
+needs only neighbour lists and PQ distances, never the full-precision
+record.  Stage A expands the frontier from the neighbour lists ``submit``
+returns at once (the adjacency sidecar) and dispatches round r+1's beam
+while round r's read is in flight; stage B retires reads up to
+``pipeline_depth`` rounds behind, FIFO, into the result heap.  The heap
+is write-only state and retirement keeps insertion order, so the output
+is bit-identical to the synchronous loop at every depth (ids, distances
+and all six stats).  The rings are Python lists and the host calls come
+in the reference's order: unfused — stage A, submit, expand, ring write,
+drain, retire; fused — account, submit, new candidates, kernel call,
+ring write, drain, retire; then ``depth - 1`` flush rounds.  Without the
+pair (memory and host tiers), any depth runs the synchronous loop.
 """
 from __future__ import annotations
 
@@ -93,6 +103,8 @@ def filtered_search(
     entry: torch.Tensor,  # () or (B,) int32 medoid
     queries: torch.Tensor,  # (B, D) full-precision queries
     config: SearchConfig,
+    submit=None,  # asynchronous pair: (B, W) ids -> (token, nbrs (B, W, R))
+    drain=None,  # (token, ids, live) -> vecs (B, W, D)
 ) -> SearchOutput:
     b = queries.shape[0]
     n = codes.shape[0]
@@ -157,24 +169,70 @@ def filtered_search(
         visited.scatter_(1, slot(new), True)
         return new
 
+    def stage_a(frontier, stats):
+        """Beam selection, masks and accounting: everything of a round but
+        the record itself (shared by the synchronous and pipelined loops)."""
+        sel_ids, slots, valid = fr.best_unexpanded(frontier, W)
+        frontier = fr.mark_expanded(frontier, slots, valid)
+        passes = filter_check(sel_ids) & valid
+        fetch_mask, tunnel_mask, result_mask, exact_mask = ftk.mode_masks(
+            mode, sel_ids, valid, passes, entry[:, None]
+        )
+        stats = account(stats, fetch_mask, tunnel_mask, exact_mask)
+        fetch_ids = torch.where(fetch_mask, sel_ids, fr.INVALID)
+        return frontier, stats, sel_ids, fetch_ids, tunnel_mask, result_mask
+
+    def expand(frontier, sel_ids, tunnel_mask, disk_nbrs):
+        new = fresh_candidates(sel_ids, tunnel_mask, disk_nbrs)
+        return fr.insert(frontier, new, pqk.adc_ids(lut, codes, new))
+
+    pipelined = config.pipeline_depth > 1 and submit is not None and drain is not None
+    depth = config.pipeline_depth
+    # the pipeline's rings, one entry per in-flight round: sel_ids,
+    # fetch_ids, result_mask and the store's token
+    p_ids = [None] * depth
+    p_fids = [torch.full((b, W), fr.INVALID, dtype=torch.int32, device=dev)] * depth
+    p_rm = [None] * depth
+    p_tok = [-1] * depth
+
+    def retire_round(rr, results, stats):
+        """Stage B: drain round ``rr`` (FIFO) and score it into the heap.
+        The drain is issued every round so the store sees a fixed call
+        order; ``rr < 0`` (warm-up) drains nothing and retires nothing."""
+        live = rr >= 0
+        dp = rr % depth
+        vecs = drain(p_tok[dp], p_fids[dp], live)
+        if live:
+            results, stats = retire(results, stats, p_ids[dp], p_rm[dp], vecs)
+        return results, stats
+
+    def finish(results, stats, r):
+        if pipelined:  # flush: retire the rounds still in flight, oldest first
+            for j in range(depth - 1):
+                results, stats = retire_round(r - (depth - 1) + j, results, stats)
+        return SearchOutput(ids=results.ids, dists=results.dists, stats=stats)
+
     use_fused = config.use_fused_kernel and ftk.fused_supported(
         l=L, width=W, m=W * (store.degree + r_max), c=codes.shape[1], k=lut.shape[2], device=dev
     )
 
+    r = 0  # round index: every row hops together, so this is n_hops[0]
     if not use_fused:
         while bool(fr.has_unexpanded(frontier).any() & (stats.n_hops < config.max_hops).all()):
-            sel_ids, slots, valid = fr.best_unexpanded(frontier, W)
-            frontier = fr.mark_expanded(frontier, slots, valid)
-            passes = filter_check(sel_ids) & valid
-            fetch_mask, tunnel_mask, result_mask, exact_mask = ftk.mode_masks(
-                mode, sel_ids, valid, passes, entry[:, None]
-            )
-            stats = account(stats, fetch_mask, tunnel_mask, exact_mask)
-            vecs, disk_nbrs = store.fetch(torch.where(fetch_mask, sel_ids, fr.INVALID))
-            results, stats = retire(results, stats, sel_ids, result_mask, vecs)
-            new = fresh_candidates(sel_ids, tunnel_mask, disk_nbrs)
-            frontier = fr.insert(frontier, new, pqk.adc_ids(lut, codes, new))
-        return SearchOutput(ids=results.ids, dists=results.dists, stats=stats)
+            frontier, stats, sel_ids, fetch_ids, tunnel_mask, result_mask = stage_a(frontier, stats)
+            if not pipelined:
+                vecs, disk_nbrs = store.fetch(fetch_ids)
+                results, stats = retire(results, stats, sel_ids, result_mask, vecs)
+                frontier = expand(frontier, sel_ids, tunnel_mask, disk_nbrs)
+                continue
+            # stage A: dispatch this round's read; its neighbours come back now
+            token, disk_nbrs = submit(fetch_ids)
+            frontier = expand(frontier, sel_ids, tunnel_mask, disk_nbrs)
+            wp = r % depth
+            p_ids[wp], p_fids[wp], p_rm[wp], p_tok[wp] = sel_ids, fetch_ids, result_mask, token
+            results, stats = retire_round(r - (depth - 1), results, stats)
+            r += 1
+        return finish(results, stats, r)
 
     def fused_call(fids, fds, fexp, fpass, new_ids, new_passes):
         return ftk.fused_traversal_round(
@@ -188,9 +246,23 @@ def filtered_search(
                      filter_check(frontier.ids), empty, empty.bool())
     while bool(rnd.valid.any() & (stats.n_hops < config.max_hops).all()):
         stats = account(stats, rnd.fetch_mask, rnd.tunnel_mask, rnd.exact_mask)
-        vecs, disk_nbrs = store.fetch(rnd.fetch_ids)
-        results, stats = retire(results, stats, rnd.sel_ids, rnd.result_mask, vecs)
+        if not pipelined:
+            vecs, disk_nbrs = store.fetch(rnd.fetch_ids)
+            results, stats = retire(results, stats, rnd.sel_ids, rnd.result_mask, vecs)
+            new = fresh_candidates(rnd.sel_ids, rnd.tunnel_mask, disk_nbrs)
+            rnd = fused_call(rnd.frontier_ids, rnd.frontier_dists, rnd.frontier_expanded,
+                             rnd.frontier_passes, new, filter_check(new))
+            continue
+        # the kernel call sits between this round's submit and the oldest
+        # round's drain, as in the unfused pipeline
+        token, disk_nbrs = submit(rnd.fetch_ids)
         new = fresh_candidates(rnd.sel_ids, rnd.tunnel_mask, disk_nbrs)
-        rnd = fused_call(rnd.frontier_ids, rnd.frontier_dists, rnd.frontier_expanded,
-                         rnd.frontier_passes, new, filter_check(new))
-    return SearchOutput(ids=results.ids, dists=results.dists, stats=stats)
+        nrnd = fused_call(rnd.frontier_ids, rnd.frontier_dists, rnd.frontier_expanded,
+                          rnd.frontier_passes, new, filter_check(new))
+        wp = r % depth
+        p_ids[wp], p_fids[wp], p_rm[wp], p_tok[wp] = (rnd.sel_ids, rnd.fetch_ids,
+                                                      rnd.result_mask, token)
+        results, stats = retire_round(r - (depth - 1), results, stats)
+        rnd = nrnd
+        r += 1
+    return finish(results, stats, r)

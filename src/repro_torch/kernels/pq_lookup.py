@@ -1,21 +1,24 @@
-"""PQ asymmetric-distance computation (ADC): CUDA kernel + plain version.
+"""PQ asymmetric-distance computation (ADC): CUDA kernels + plain versions.
 
-Replaces the TPU kernel ``repro/kernels/pq_lookup.py::pq_lookup_gathered``.
-Source ``repro_torch/csrc/pq_lookup.cu``; its header note says what bounds
-it on the card and how the design answers that.
+Replaces the TPU kernels ``repro/kernels/pq_lookup.py::pq_lookup_gathered``
+and ``::pq_scan``.  Source ``repro_torch/csrc/pq_lookup.cu``; its header
+note says what bounds the kernels on the card and how the design answers
+that.
 
-Two entry points share the kernel:
+Three entry points:
 
   * ``pq_lookup_gathered(lut, codes)`` — the TPU contract: per-query code
     rows (B, M, C) -> (B, M).
   * ``adc_ids(lut, codes, ids)`` — the search loop's entry: the gather
     ``codes[max(ids, 0)]`` happens inside the kernel and ids < 0 give
     +INF, so no (B, M, C) copy of the code rows is made.
+  * ``pq_scan(lut, codes)`` — the brute-force sweep over one (N, C) code
+    table shared by every query -> (B, N) (``core.pq.adc_lookup``).
 
-Both sum c = 0..C-1 left to right; the plain versions below use the same
+All sum c = 0..C-1 left to right; the plain versions below use the same
 order, so kernel and plain version agree bit for bit.  A wrapper runs the
 plain version only for CPU tensors; for CUDA tensors it launches the
-kernel or raises.
+kernel or raises.  Codes must lie in [0, K): the kernels do not check.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "pq_lookup"
+SCAN_NAME = "pq_scan"
 INF = 3.4e38
 
 
@@ -39,6 +43,14 @@ def adc_ids_ref(lut: torch.Tensor, codes: torch.Tensor, ids: torch.Tensor) -> to
     """lut (B, C, K), codes (N, C), ids (B, M) -> (B, M); ids < 0 -> +INF."""
     d = pq_lookup_gathered_ref(lut, codes[ids.clamp(min=0).long()])
     return torch.where(ids >= 0, d, INF)
+
+
+def pq_scan_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """lut (B, C, K) f32, codes (N, C) i32 -> (B, N) f32, c summed in order."""
+    acc = torch.zeros((lut.shape[0], codes.shape[0]), dtype=torch.float32, device=lut.device)
+    for c in range(lut.shape[1]):
+        acc = acc + lut[:, c, :][:, codes[:, c].long()]
+    return acc
 
 
 def _check(lut, codes, ids=None):
@@ -90,3 +102,28 @@ def adc_ids(lut: torch.Tensor, codes: torch.Tensor, ids: torch.Tensor) -> torch.
     b, m = ids.shape
     out = torch.empty((b, m), dtype=torch.float32, device=lut.device)
     return _launch(lut, codes, ids, out, b, m, 1)
+
+
+def pq_scan(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Brute-force ADC sweep: out[b, n] = sum_c lut[b, c, codes[n, c]]."""
+    _check(lut, codes)
+    if codes.dim() != 2:
+        raise ValueError(f"codes {tuple(codes.shape)} is not (N, C)")
+    if lut.device.type == "cpu":
+        return pq_scan_ref(lut, codes)
+    if not (lut.is_contiguous() and codes.is_contiguous()):
+        raise ValueError("pq_scan wants contiguous tensors")
+    if codes.data_ptr() % 16:
+        raise ValueError("pq_scan wants 16-byte aligned codes (its kernel loads rows in 16 B)")
+    b, n = lut.shape[0], codes.shape[0]
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the kernel's grid limit of 65535 queries")
+    out = torch.empty((b, n), dtype=torch.float32, device=lut.device)
+    if b == 0 or n == 0:  # nothing to compute: no launch, and none counted
+        return out
+    fn = _build.entry(NAME, "pq_scan_launch", 3, 4)
+    err = fn(_build.ptr(lut), _build.ptr(codes), _build.ptr(out), b, n, lut.shape[1],
+             lut.shape[2], _build.stream_ptr(lut))
+    _build.check(err, "pq_scan_launch")
+    _build.LAUNCHES[SCAN_NAME] += 1
+    return out

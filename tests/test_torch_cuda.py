@@ -6,10 +6,12 @@ only PyTorch:
 
     python3 -m pytest tests/test_torch_cuda.py -q
 
-Bit for bit: ADC (both entries), the L2 tree, the fused round on all 11
-fields, and whole searches card vs CPU.  Within ``expanded_tolerance``:
-the expanded L2 form.  The input generators are shared with
-``tests/test_torch_kernels.py``.
+Bit for bit: ADC (all three entries, the brute-force scan included),
+the L2 tree, the fused round on all 11 fields, the top-k merge, and
+whole searches card vs CPU — on the memory tier and off an index file on
+the disk tier, synchronous and pipelined.  Within
+``expanded_tolerance``: the expanded L2 form.  The input generators are
+shared with ``tests/test_torch_kernels.py``.
 """
 import numpy as np
 import pytest
@@ -17,11 +19,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import GateANNEngine, SearchConfig  # noqa: E402
+from repro_torch.core import pq as tpqm  # noqa: E402
 from repro_torch.data import make_bigann_like, make_queries, uniform_labels  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_traversal as tft  # noqa: E402
 from repro_torch.kernels import l2_dist as tl2  # noqa: E402
 from repro_torch.kernels import pq_lookup as tpq  # noqa: E402
+from repro_torch.kernels import topk_merge as ttk  # noqa: E402
+from repro_torch.store import write_index  # noqa: E402
 
 MODES = ("gate", "post", "early", "pre_naive", "unfiltered")
 B, L, W, C, K, N_IDS = 2, 8, 2, 4, 16, 50
@@ -42,6 +47,25 @@ def l2_inputs(seed, d, b=5, w=8):
     q = (rng.random((b, d)) * 255).astype(np.float32)
     rows = np.round(rng.random((b, w, d)) * 255).astype(np.float32)
     return q, rows
+
+
+def scan_inputs(seed, c, b=3, n=300, k=256):
+    """An ADC table per query and one shared (N, C) code table."""
+    rng = np.random.default_rng(seed)
+    lut = (rng.random((b, c, k)) * 1000).astype(np.float32)
+    codes = rng.integers(0, k, size=(n, c)).astype(np.int32)
+    return lut, codes
+
+
+def topk_inputs(seed, m, b=4):
+    """Rows 0-1: random distances and ids; rows 2-3 duplicate-heavy: 10
+    distinct distances and ids repeated, so whole (dist, id) keys repeat."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(b, m)).astype(np.float32)
+    i = rng.integers(0, 1_000_000, size=(b, m)).astype(np.int32)
+    d[2:] = rng.integers(0, 10, size=(b - 2, m)).astype(np.float32)
+    i[2:] = rng.integers(0, max(m // 4, 2), size=(b - 2, m)).astype(np.int32)
+    return d, i
 
 
 def round_inputs(seed, m, *, dup_ids=False, all_filtered=False):
@@ -141,3 +165,64 @@ def test_card_search_equals_cpu(cuda):
             b = on_cpu.search(q, filter_kind=kind, filter_params=params, search_config=cfg)
             for g, w in zip((a.ids, a.dists, *a.stats), (b.ids, b.dists, *b.stats)):
                 assert torch.equal(g.cpu(), w), (mode, fused)
+
+
+def test_card_pq_scan_bit_identical(cuda):
+    """The brute-force scan, through ``core.pq.adc_lookup`` as well."""
+    lut, codes = (torch.from_numpy(x).to(cuda) for x in scan_inputs(21, 32, b=64, n=100_003))
+    before = _build.LAUNCHES["pq_scan"]
+    want = tpq.pq_scan_ref(lut, codes)
+    assert torch.equal(tpq.pq_scan(lut, codes), want)
+    assert torch.equal(tpqm.adc_lookup(lut, codes), want)
+    assert _build.LAUNCHES["pq_scan"] == before + 2
+
+
+@pytest.mark.parametrize("m", [5, 100, 768, 1000])
+def test_card_topk_merge_bit_identical(cuda, m):
+    d, i = (torch.from_numpy(x).to(cuda) for x in topk_inputs(50 + m, m, b=64))
+    before = _build.LAUNCHES["topk_merge"]
+    for k in (1, 10, 64, 2048):
+        got, want = ttk.topk_merge(d, i, k), ttk.topk_merge_ref(d, i, k)
+        assert got[0].shape == (64, min(k, ttk.padded_width(m)))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (m, k)
+    assert _build.LAUNCHES["topk_merge"] == before + 4
+
+
+def test_card_topk_merge_refuses_rows_beyond_shared_memory(cuda):
+    d = torch.zeros((2, ttk.MAX_WIDTH + 1), device=cuda)
+    i = torch.zeros((2, ttk.MAX_WIDTH + 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ttk.topk_merge(d, i, 10)
+
+
+def test_card_disk_search_equals_cpu(cuda, tmp_path):
+    """An index file served off the disk tier on the card and on the CPU:
+    ids, distances and stats bit-identical, synchronous and pipelined,
+    and the card's reads reconcile with its n_ios."""
+    n, d = 3000, 32
+    x = make_bigann_like(n, d, seed=4)
+    xt = torch.from_numpy(x)
+    nbrs = torch.topk(torch.cdist(xt, xt), 13, largest=False).indices[:, 1:].int().numpy()
+    rng = np.random.default_rng(5)
+    path = str(tmp_path / "card.gann")
+    write_index(path, vectors=x, neighbors=nbrs,
+                pq_books=rng.random((8, 256, 4)).astype(np.float32) * 255,
+                pq_codes=rng.integers(0, 256, size=(n, 8)).astype(np.int32), medoid=0,
+                config={"r_max": 8}, filters={"label": uniform_labels(n, 10, seed=0)})
+    on_card = GateANNEngine.load(path, device=cuda, store_tier="disk")
+    on_cpu = GateANNEngine.load(path, device="cpu", store_tier="disk")
+    q = make_queries(x, 16, seed=1)
+    targets = np.arange(16, dtype=np.int32) % 10
+    for fused in (False, True):
+        for depth in (1, 3):
+            cfg = SearchConfig(mode="gate", search_l=24, beam_width=4, use_fused_kernel=fused,
+                               pipeline_depth=depth)
+            on_card.measured_store().reset_io_counters()
+            a = on_card.search(q, filter_kind="label", filter_params=targets, search_config=cfg)
+            torch.cuda.synchronize()
+            io = on_card.io_counters()
+            b = on_cpu.search(q, filter_kind="label", filter_params=targets, search_config=cfg)
+            for g, w in zip((a.ids, a.dists, *a.stats), (b.ids, b.dists, *b.stats)):
+                assert torch.equal(g.cpu(), w), (fused, depth)
+            assert io["records_read"] == int(a.stats.n_ios.sum())
+            assert io["abandoned_tokens"] == 0

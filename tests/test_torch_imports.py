@@ -34,8 +34,18 @@ GUARD = textwrap.dedent("""
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
                     and sys.modules[m] is not None)
     assert not leaked, leaked
-    print(len(names))
+    print(" ".join(names))
 """)
+
+# modules the port must hold, the disk tier and the last two kernels included
+EXPECTED = {
+    "repro_torch.core.engine", "repro_torch.core.search", "repro_torch.core.pq",
+    "repro_torch.store.disk", "repro_torch.store.faults", "repro_torch.store.staging",
+    "repro_torch.store.vector_store", "repro_torch.store.format",
+    "repro_torch.kernels.ops", "repro_torch.kernels.topk_merge",
+    "repro_torch.kernels.pq_lookup", "repro_torch.kernels.l2_dist",
+    "repro_torch.kernels.fused_traversal",
+}
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -44,7 +54,8 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 18  # every module of the package was reached
+    names = set(out.stdout.split())
+    assert len(names) >= 22 and EXPECTED <= names, sorted(EXPECTED - names)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -58,5 +69,17 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_alone_refuses(tmp_path):
+    """Copied without the rest of the repository, the smoke run cannot
+    find the port: it exits non-zero and prints no result line."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_bytes(open(os.path.join(REPO, "chip_smoke.py"), "rb").read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(alone)], capture_output=True, text=True,
+                         timeout=120, cwd=tmp_path, env=env)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout

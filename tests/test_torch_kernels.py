@@ -13,7 +13,11 @@ interpret mode and against ``repro.kernels.ref``:
     does);
   * L2 expanded: within ``expanded_tolerance``;
   * the fused twin: bit for bit against ``ref.fused_traversal_round_ref``
-    on the adversarial rounds of ``tests/test_fused_traversal.py``.
+    on the adversarial rounds of ``tests/test_fused_traversal.py``;
+  * the brute-force ADC scan: bit for bit at C = 8, 16, within
+    C * eps * value at C = 32 (the tolerance of the gathered ADC);
+  * the top-k merge: exact distances and ids, duplicate-heavy rows
+    included, at M in {5, 64, 100, 768} and k in {1, 10, M, 2M}.
 
 The CUDA kernels themselves are held to these plain versions on the card
 by ``tests/test_torch_cuda.py``.
@@ -29,13 +33,18 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import search as jsearch  # noqa: E402
 from repro.kernels import fused_traversal as jft  # noqa: E402
 from repro.kernels import l2_dist as jl2  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import pq_lookup as jpq  # noqa: E402
 from repro.kernels import ref as kref  # noqa: E402
+from repro_torch.core import pq as tpqm  # noqa: E402
 from repro_torch.kernels import fused_traversal as tft  # noqa: E402
 from repro_torch.kernels import l2_dist as tl2  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import pq_lookup as tpq  # noqa: E402
+from repro_torch.kernels import topk_merge as ttk  # noqa: E402
 from test_torch_cuda import (  # noqa: E402
     CASES, L, N_IDS, W, B, K, C, adc_inputs, assert_round_equal, l2_inputs, round_inputs,
+    scan_inputs, topk_inputs,
 )
 
 MODES = ("gate", "post", "early", "pre_naive", "unfiltered")
@@ -101,6 +110,28 @@ def test_l2_expanded_within_tolerance_of_pallas_and_ref():
         assert (np.abs(got - _np(want)) <= tol).all()
 
 
+def test_entry_arities_match_the_sources():
+    """Each wrapper declares its C entry point's pointers and ints as the
+    source defines them (ctypes would pass a wrong count silently short)."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    sigs = {}
+    for cu in _build.CSRC.glob("*.cu"):
+        for sym, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', cu.read_text()):
+            params = [p.strip() for p in params.split(",")][:-1]  # the stream goes last
+            sigs[sym] = (sum("*" in p for p in params), sum("*" not in p for p in params))
+    declared = {}
+    for py in Path(_build.__file__).parent.glob("*.py"):
+        for sym, n_ptrs, n_ints in re.findall(r'entry\(\w+, "(\w+)", (\d+), (\d+)\)',
+                                              py.read_text()):
+            declared[sym] = (int(n_ptrs), int(n_ints))
+    assert set(declared) == set(sigs) and len(sigs) == 5
+    assert declared == sigs
+
+
 def test_wrappers_refuse_bad_inputs():
     lut = torch.zeros((2, 4, 16))
     with pytest.raises(TypeError):
@@ -111,6 +142,80 @@ def test_wrappers_refuse_bad_inputs():
         tl2.l2_dist(torch.zeros((2, 4)), torch.zeros((2, 3, 5)))
     with pytest.raises(TypeError):
         tl2.l2_dist(torch.zeros((2, 4), dtype=torch.float64), torch.zeros((2, 3, 4)))
+
+
+# --------------------------------------------------------------- pq_scan
+@pytest.mark.parametrize("c", [8, 16])
+def test_pq_scan_bit_identical_to_pallas_and_ref(c):
+    lut, codes = scan_inputs(c, c)
+    got = _np(tops.pq_scan(torch.from_numpy(lut), torch.from_numpy(codes)))
+    np.testing.assert_array_equal(got, _np(jops.pq_scan(jnp.asarray(lut), jnp.asarray(codes))))
+    np.testing.assert_array_equal(got, _np(kref.pq_scan_ref(jnp.asarray(lut), jnp.asarray(codes))))
+
+
+def test_pq_scan_c32_within_tolerance():
+    lut, codes = scan_inputs(3, 32)
+    got = _np(tpq.pq_scan(torch.from_numpy(lut), torch.from_numpy(codes)))
+    for want in (jops.pq_scan(jnp.asarray(lut), jnp.asarray(codes)),
+                 kref.pq_scan_ref(jnp.asarray(lut), jnp.asarray(codes))):
+        # 32 positive terms summed in two orders: each within C * eps * sum
+        np.testing.assert_array_less(np.abs(got - _np(want)), 32 * EPS * _np(want))
+
+
+def test_adc_lookup_is_the_scan():
+    lut, codes = (torch.from_numpy(x) for x in scan_inputs(4, 8, n=77))
+    want = tpq.pq_scan_ref(lut, codes)
+    assert torch.equal(tpqm.adc_lookup(lut, codes), want)
+    assert torch.equal(tpqm.adc_lookup_ref(lut, codes), want)
+    assert tops.pq_lookup is tops.pq_lookup_gathered
+
+
+# --------------------------------------------------------------- topk_merge
+@pytest.mark.parametrize("m", [5, 64, 100, 768])
+def test_topk_merge_matches_pallas_and_ref(m):
+    """Exact distances and ids for k in {1, 10, M, 2M}: against
+    ``ref.topk_merge_ref`` on the first min(k, M) columns, and against the
+    Pallas kernel on all min(k, P) columns, pad entries (3.4e38, -1)
+    included.  The Pallas kernel writes the first k entries of one network
+    (``_bitonic_kernel``: ``d[:l]``), so one interpret-mode call at k = 2M
+    (its full width P) gives its output at every k."""
+    d, i = topk_inputs(60 + m, m)
+    p = ttk.padded_width(m)
+    pd, pi = (_np(x) for x in jops.topk_merge(jnp.asarray(d), jnp.asarray(i), 2 * m))
+    assert pd.shape == (d.shape[0], p)
+    for k in (1, 10, m, 2 * m):
+        gd, gi = (_np(x) for x in ttk.topk_merge(torch.from_numpy(d), torch.from_numpy(i), k))
+        kk = min(k, p)
+        assert gd.shape == gi.shape == (d.shape[0], kk)
+        np.testing.assert_array_equal(gd, pd[:, :kk], err_msg=f"dists k={k}")
+        np.testing.assert_array_equal(gi, pi[:, :kk], err_msg=f"ids k={k}")
+        rd, ri = kref.topk_merge_ref(jnp.asarray(d), jnp.asarray(i), min(k, m))
+        np.testing.assert_array_equal(gd[:, : min(k, m)], _np(rd), err_msg=f"ref dists k={k}")
+        np.testing.assert_array_equal(gi[:, : min(k, m)], _np(ri), err_msg=f"ref ids k={k}")
+        if k > m:  # beyond M: pad entries only
+            assert (gi[:, m:] == -1).all() and (gd[:, m:] == np.float32(3.4e38)).all()
+
+
+def test_topk_merge_pallas_at_the_loop_k():
+    """One literal interpret-mode call at k = 10 (the loop's result_k) on a
+    width that is not a power of two."""
+    d, i = topk_inputs(71, 100)
+    gd, gi = ttk.topk_merge(torch.from_numpy(d), torch.from_numpy(i), 10)
+    wd, wi = jops.topk_merge(jnp.asarray(d), jnp.asarray(i), 10)
+    np.testing.assert_array_equal(_np(gd), _np(wd))
+    np.testing.assert_array_equal(_np(gi), _np(wi))
+
+
+def test_topk_merge_refuses_bad_inputs():
+    d, i = torch.zeros((2, 5)), torch.zeros((2, 5), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ttk.topk_merge(d, i, 0)
+    with pytest.raises(ValueError):
+        ttk.topk_merge(d, i[:, :4], 3)
+    with pytest.raises(TypeError):
+        ttk.topk_merge(d.double(), i, 3)
+    assert [ttk.padded_width(m) for m in (0, 1, 2, 5, 768, 1024, 1025)] == [
+        2, 1, 2, 8, 1024, 1024, 2048]
 
 
 # --------------------------------------------------------------- fused round

@@ -103,8 +103,8 @@ def test_memory_report_matches_reference(tiny_engine, port):
 
 
 def test_pipeline_depth_runs_the_synchronous_loop(tiny_corpus, port):
-    """No store of the port has submit/drain yet: any depth is the
-    synchronous loop, as in the reference for such stores."""
+    """The memory tier has no submit/drain: any depth is the synchronous
+    loop, as in the reference for such stores."""
     _, _, queries = tiny_corpus
     kind, params = _filter("gate", queries)
     a = port.search(queries, filter_kind=kind, filter_params=params,
@@ -129,17 +129,18 @@ def test_load_without_device_raises_without_cuda(index_path, monkeypatch):
 
 
 def test_unported_tiers_refused(index_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        GateANNEngine.load(index_path, device="cpu", store_tier="disk")
+    """The cache tiers are not ported yet; faults= needs the disk tier."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         GateANNEngine.load(index_path, device="cpu", cache_budget_bytes=1 << 20)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="faults= wraps the disk tier"):
         GateANNEngine.load(index_path, device="cpu", faults=object())
     with pytest.raises(ValueError, match="unknown EngineConfig"):
         GateANNEngine.load(index_path, device="cpu", no_such_knob=1)
-    # the reference's disk-tier knobs are refused, not silently ignored
+    # the reference's build knobs are refused, not silently ignored
     with pytest.raises(ValueError, match="unknown EngineConfig"):
-        GateANNEngine.load(index_path, device="cpu", io_retries=3)
+        GateANNEngine.load(index_path, device="cpu", build_l=40)
+    with pytest.raises(ValueError, match="store_tier"):
+        GateANNEngine.load(index_path, device="cpu", store_tier="ssd")
     with pytest.raises(ValueError):
         SearchConfig(mode="nope")
 
