@@ -12,8 +12,9 @@ PyTorch version on the card.  Phases, each printing its own lines:
   2. kernels against their plain versions at the paths' shapes (ADC both
      entries, L2 tree bit for bit and expanded within tolerance, the fused
      round bit for bit on all 11 fields in all five modes, adversarial
-     rounds included, the brute-force scan over 1,000,000 codes and the
-     top-k merge on random and duplicate-heavy keys, bit for bit);
+     rounds and the merge's edges included, the brute-force scan over
+     1,000,000 codes, and the top-k merge on both of its routes on random,
+     duplicate-heavy and edge keys, bit for bit);
   3. a 1M x 128 index (BigANN-like data, 10 uniform labels, a norm range
      attribute, a degree-64 graph of 48 exact neighbours + 16 random
      links, PQ with 32 chunks) written with the port's writer and loaded
@@ -140,6 +141,31 @@ def round_inputs(rng, dev, b, l, m, c, k, n_ids, *, dup_ids=False, all_filtered=
     return tuple(torch.from_numpy(x).to(dev) for x in (fid, fd, fexp, fpas, nid, nc, npas, lut, entry))
 
 
+def edge_round(rng, dev, case: str, b: int, l: int, m: int, c: int, k: int, n_ids: int):
+    """A round at an edge of the merge (unsorted frontier): ``mostly_dead``
+    half the frontier empty and most candidates -1 or copies of frontier
+    ids, so fewer than L keys are finite; ``ties`` integer LUT entries and
+    frontier distances; ``neg_zero`` a LUT of mostly 0.0 and frontier
+    distances of -0.0 and +0.0; ``wide`` a plain round at L = 256."""
+    fid, fd, fexp, fpas, nid, nc, npas, lut, entry = (
+        t.cpu().numpy() for t in round_inputs(rng, "cpu", b, l, m, c, k, n_ids))
+    if case == "mostly_dead":
+        fid[:, l // 2:] = -1
+        fd = np.where(fid >= 0, fd, np.float32(3.4e38)).astype(np.float32)
+        fexp &= fid >= 0
+        copies = np.take_along_axis(fid, rng.integers(0, 3, size=(b, m)), 1)
+        nid = np.where(rng.random((b, m)) < 0.5, -1, copies).astype(np.int32)
+        nid[:, 0] = n_ids - 1
+    elif case == "ties":
+        lut = rng.integers(0, 3, size=(b, c, k)).astype(np.float32)
+        fd = np.where(fid >= 0, rng.integers(0, 3 * c, size=(b, l)), np.float32(3.4e38)).astype(np.float32)
+    elif case == "neg_zero":
+        lut = np.where(rng.random((b, c, k)) < 0.97, 0.0, 1.0).astype(np.float32)
+        zeros = np.where(rng.random((b, l)) < 0.5, np.float32(-0.0), np.float32(0.0))
+        fd = np.where(fid >= 0, zeros, np.float32(3.4e38)).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(dev) for x in (fid, fd, fexp, fpas, nid, nc, npas, lut, entry))
+
+
 def check_fused(dev, rng) -> None:
     main_m = 8 * (DEGREE + R_MAX)
     shapes = {"main": (BATCH, 64, 8, PQ_CHUNKS, 256, 50_000), "small": (2, 8, 2, 4, 16, 50)}
@@ -163,8 +189,53 @@ def check_fused(dev, rng) -> None:
             want = ftk.fused_traversal_round_ref(*by_id, mode="gate", width=w, gathered=False)
             for f in got._fields:
                 same(getattr(got, f), getattr(want, f), f"fused by-id {label} {case} {f}")
-    log("kernels", f"fused round bit-identical on all 11 fields: {n_checked} (shape, case, mode) "
-        "rounds incl. duplicate ids, all filtered, M=0 and M not a power of two; by-id entry too")
+    # the merge's edges at the loop's shapes, all five modes, gathered and by id
+    for case, l in (("wide", 256), ("mostly_dead", 64), ("ties", 64), ("neg_zero", 64)):
+        state = edge_round(rng, dev, case, BATCH, l, main_m, PQ_CHUNKS, 256, 50_000)
+        table = torch.from_numpy(rng.integers(0, 256, (50_000, PQ_CHUNKS)).astype(np.int32)).to(dev)
+        for mode in MODES:
+            for gathered in (True, False):
+                args = state if gathered else state[:5] + (table,) + state[6:]
+                got = ftk.fused_traversal_round(*args, mode=mode, width=8, gathered=gathered)
+                want = ftk.fused_traversal_round_ref(*args, mode=mode, width=8, gathered=gathered)
+                for f in got._fields:
+                    g, h = getattr(got, f), getattr(want, f)
+                    if g.dtype == torch.float32:
+                        g, h = g.view(torch.int32), h.view(torch.int32)
+                    same(g, h, f"fused {case} L={l} {mode} gathered={gathered} {f}")
+                n_checked += 1
+        if case == "mostly_dead":
+            n_dead = int((got.frontier_ids < 0).sum(1).min())
+            require(n_dead > 0, "mostly_dead: no dead slot reached the frontier")
+    # the other load paths: scalar code loads (C = 6, or code rows 4 bytes
+    # off a 16-byte boundary) and a LUT copied without cp.async (4 bytes off)
+    for path, c, k in (("C=6", 6, 16), ("4-byte offset", PQ_CHUNKS, 256)):
+        state = list(edge_round(rng, dev, "ties", BATCH, 64, main_m, c, k, 50_000))
+        table = torch.from_numpy(rng.integers(0, k, (50_000, c)).astype(np.int32)).to(dev)
+        if c == PQ_CHUNKS:
+            state[5], state[7], table = at_offset(state[5]), at_offset(state[7]), at_offset(table)
+            require(all(t.data_ptr() % 16 == 4 for t in (state[5], state[7], table)),
+                    "4-byte offset: the tensors are 16-byte aligned")
+        for mode in MODES:
+            for gathered, codes in ((True, state[5]), (False, table)):
+                args = state[:5] + [codes] + state[6:]
+                got = ftk.fused_traversal_round(*args, mode=mode, width=8, gathered=gathered)
+                want = ftk.fused_traversal_round_ref(*args, mode=mode, width=8, gathered=gathered)
+                for f in got._fields:
+                    same(getattr(got, f), getattr(want, f), f"fused {path} {mode} {gathered} {f}")
+                n_checked += 1
+    log("kernels", f"fused round bit-identical on all 11 fields: {n_checked} (shape, case, mode, "
+        "entry) rounds incl. duplicate ids, all filtered, M=0, M not a power of two, L=256, "
+        "mostly dead (fewer than L finite keys), quantised and signed-zero distances, C=6 and "
+        "a LUT and codes 4 bytes off 16-byte alignment (scalar loads, no cp.async); by-id entry too")
+
+
+def at_offset(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one element (4 bytes)
+    past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def check_scan(dev, n, rng) -> None:
@@ -187,18 +258,48 @@ def topk_keys(rng, b, m, dup: bool):
     return d, i
 
 
+def topk_edge_keys(rng, b, m):
+    """Rows at the contract's edges, a kind a row: half the keys at +inf
+    (they sort after the pads); most keys at the pads' 3.4e38 with ids up
+    to 2**31 - 1; -0.0, +0.0 and 1.0 under four ids; three finite keys and
+    the rest +inf; a descending row."""
+    d = rng.normal(size=(b, m)).astype(np.float32)
+    i = rng.integers(-1 << 30, 1 << 30, (b, m)).astype(np.int32)
+    kind = np.arange(b) % 5
+    u = rng.random((b, m))
+    d[(kind == 0)[:, None] & (u < 0.5)] = np.inf
+    at_pad = (kind == 1)[:, None] & (u < 0.8)
+    d[at_pad] = np.float32(3.4e38)
+    i[at_pad & (rng.random((b, m)) < 0.2)] = tkk.PAD_ID
+    zeros = np.array([-0.0, 0.0, 1.0], np.float32)[rng.integers(0, 3, (b, m))]
+    d[kind == 2] = zeros[kind == 2]
+    i[kind == 2] = rng.integers(0, 4, (int((kind == 2).sum()), m))
+    d[kind == 3] = np.inf
+    d[kind == 3, :3] = 1.0
+    d[kind == 4] = -np.sort(d[kind == 4], axis=1)
+    return d, i
+
+
 def check_topk(dev, rng) -> None:
-    n_checked = 0
-    for m in (8 * (DEGREE + R_MAX), 1000):
-        for dup in (False, True):
-            d, i = (torch.from_numpy(x).to(dev) for x in topk_keys(rng, BATCH, m, dup))
-            for k in (10, 64, 2048):
-                got, want = tkk.topk_merge(d, i, k), tkk.topk_merge_ref(d, i, k)
-                same(got[0], want[0], f"topk_merge dists M={m} k={k} dup={dup}")
-                same(got[1], want[1], f"topk_merge ids M={m} k={k} dup={dup}")
-                n_checked += 1
-    log("kernels", f"topk_merge bit-identical: {n_checked} cases, B={BATCH}, M in (768, 1000), "
-        "k in (10, 64, 2048), random and duplicate-heavy keys")
+    """Every route at its edges: B = 256 rows take the block's selection for
+    k <= 64 and 4,096 rows the warp's for k <= 32; k = 2,048 the network."""
+    n_checked, routes = 0, set()
+    for b, ks in ((BATCH, (10, 32, 33, 64, 2048)), (4096, (10, 32))):
+        for m in (5, 8 * (DEGREE + R_MAX), 1000, 10_000):
+            for keys in ("random", "dup", "edges"):
+                x = topk_edge_keys(rng, b, m) if keys == "edges" else topk_keys(rng, b, m, keys == "dup")
+                d, i = (torch.from_numpy(a).to(dev) for a in x)
+                for k in ks:
+                    got, want = tkk.topk_merge(d, i, k), tkk.topk_merge_ref(d, i, k)
+                    what = f"topk_merge B={b} M={m} k={k} {keys} route={tkk.route(b, m, k)}"
+                    same(got[0].view(torch.int32), want[0].view(torch.int32), f"{what} dists")
+                    same(got[1], want[1], f"{what} ids")
+                    routes.add(tkk.route(b, m, k))
+                    n_checked += 1
+    require(routes == set(tkk.ROUTES), f"topk_merge routes checked: {routes}")
+    log("kernels", f"topk_merge bit-identical (dists' bits included): {n_checked} cases, B in "
+        f"({BATCH}, 4096), M in (5, 768, 1000, 10000), k in (10, 32, 33, 64, 2048) on all three "
+        "routes, random, duplicate-heavy and edge keys (+inf, 3.4e38 ties, -0.0/+0.0)")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -293,17 +394,20 @@ class Capture:
         self.at_call, self.calls, self.args = at_call, {}, {}
         self.saved = []
         self.launches = {}  # path -> its kernel launches, each counted from 0
-        # the scan path: its third batch's scan and first-level merge
-        self.at = {"pq_scan": 3, "topk_merge": 5}
+        # the scan path: its third batch's scan, first-level merge (under
+        # "topk_merge") and second-level merge (under "topk_merge_2")
+        self.at = {"pq_scan": (3,), "topk_merge": (5, 6)}
 
     def wrap(self, module, fn_name: str, key: str):
         real = getattr(module, fn_name)
 
         def recorder(*args, **kwargs):
             self.calls[key] = self.calls.get(key, 0) + 1
-            if self.calls[key] == self.at.get(key, self.at_call):
+            at = self.at.get(key, (self.at_call,))
+            if self.calls[key] in at:
                 clone = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
-                self.args[key] = (clone, dict(kwargs))
+                n = at.index(self.calls[key])
+                self.args[key if n == 0 else f"{key}_{n + 1}"] = (clone, dict(kwargs))
             return real(*args, **kwargs)
 
         self.saved.append((module, fn_name, real))
@@ -784,33 +888,62 @@ def kernel_line(cap: Capture) -> list[dict]:
                      library_note="no single PyTorch call sums per-query LUT entries picked by a "
                                   "shared code table",
                      shape=f"B={b} N={n} C={c} K={k}"))
-    # top-k merge at the scan path's first-level shape, timed on tie-free
-    # keys of that shape so that torch.topk computes the same function
-    (d_cap, i_cap, k), _ = cap.args["topk_merge"]
-    b, m = d_cap.shape
-    p = tkk.padded_width(m)
-    kk = min(k, p)
-    rng = np.random.default_rng(9)
-    d, i = (torch.from_numpy(x).to(d_cap.device) for x in topk_keys(rng, b, m, dup=False))
-    got, want = tkk.topk_merge(d_cap, i_cap, k), tkk.topk_merge_ref(d_cap, i_cap, k)
-    err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
-    lib = torch.topk(d, min(k, m), dim=1, largest=False)
-    require(bool(torch.equal(lib.values, tkk.topk_merge(d, i, k)[0][:, : min(k, m)])),
-            "torch.topk disagrees with topk_merge on tie-free keys")
-    logp = p.bit_length() - 1
-    bnd = bound(b * m * 8 + b * kk * 8, b * (p // 2) * logp * (logp + 1) // 2)
+    # top-k merge at the scan path's first-level shape (and, beside it, the
+    # second level's), timed on tie-free keys of that shape so that
+    # torch.topk computes the same function, and on the path's own keys
+    levels = []
+    for n_level, key in enumerate(("topk_merge", "topk_merge_2")):
+        (d_cap, i_cap, k), _ = cap.args[key]
+        b, m = d_cap.shape
+        p = tkk.padded_width(m)
+        kk = min(k, p)
+        rng = np.random.default_rng(9 + n_level)
+        d, i = (torch.from_numpy(x).to(d_cap.device) for x in topk_keys(rng, b, m, dup=False))
+        got, want = tkk.topk_merge(d_cap, i_cap, k), tkk.topk_merge_ref(d_cap, i_cap, k)
+        err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+        lib = torch.topk(d, min(k, m), dim=1, largest=False)
+        require(bool(torch.equal(lib.values, tkk.topk_merge(d, i, k)[0][:, : min(k, m)])),
+                "torch.topk disagrees with topk_merge on tie-free keys")
+        # the least the function must move: every distance once, the id of
+        # every key at or below its row's k-th distance (only those can be
+        # in the output), the output; one compare a key
+        kth = lib.values[:, -1:]
+        n_ids = int((d <= kth).sum())
+        bnd = bound(b * m * 4 + n_ids * 4 + b * kk * 8, b * m)
+        logp = p.bit_length() - 1  # PR 12's formula: 8 bytes a key, the network's compares
+        pr12 = bound(b * m * 8 + b * kk * 8, b * (p // 2) * logp * (logp + 1) // 2)
+        levels.append(dict(max_abs_err=err, ms=time_ms(lambda: tkk.topk_merge(d, i, k), reps=20),
+                           plain_ms=time_ms(lambda: tkk.topk_merge_ref(d, i, k), reps=5),
+                           bound_ms=bnd[0], bound_by=bnd[1], bound_ids_read=n_ids,
+                           bound_ms_pr12_formula=pr12[0],
+                           library_ms=time_ms(lambda: torch.topk(d, min(k, m), dim=1, largest=False),
+                                              reps=20),
+                           kernel_route=tkk.route(b, m, k),
+                           ms_path_keys=time_ms(lambda: tkk.topk_merge(d_cap, i_cap, k), reps=20),
+                           library_ms_path_keys=time_ms(
+                               lambda: torch.topk(d_cap, min(k, m), dim=1, largest=False), reps=20),
+                           path_keys_at_3_4e38=float((d_cap == tkk.PAD_DIST).float().mean()),
+                           shape=f"B={b} M={m} k={k} P={p} (timed on tie-free keys of this shape; "
+                                 "*_path_keys: on the scan path's own keys)"))
+    first, second = levels
+    # off the path: each route at a loop-sized shape, and the warp's on more rows
+    routes = {}
+    rng = np.random.default_rng(11)
+    loop_m = 8 * (DEGREE + R_MAX)
+    for b, m, k in ((BATCH, loop_m, 10), (BATCH, loop_m, 64), (4096, loop_m, 10), (BATCH, 1000, 2048)):
+        d, i = (torch.from_numpy(x).to(d_cap.device) for x in topk_keys(rng, b, m, dup=False))
+        routes[f"B={b} M={m} k={k}"] = dict(
+            kernel_route=tkk.route(b, m, k), ms=time_ms(lambda: tkk.topk_merge(d, i, k), reps=50),
+            library_ms=time_ms(lambda: torch.topk(d, min(k, m), dim=1, largest=False), reps=50))
     rows.append(dict(name="topk_merge", route="cuda", source="src/repro_torch/csrc/topk_merge.cu",
                      replaces="src/repro/kernels/topk_merge.py:68",
                      launches=total(cap, "topk_merge"),
-                     launches_by_path=by_path(cap, "topk_merge"), max_abs_err=err,
-                     ms=time_ms(lambda: tkk.topk_merge(d, i, k), reps=20),
-                     plain_ms=time_ms(lambda: tkk.topk_merge_ref(d, i, k), reps=5),
-                     bound_ms=bnd[0], bound_by=bnd[1],
-                     library_ms=time_ms(lambda: torch.topk(d, min(k, m), dim=1, largest=False),
-                                        reps=20),
-                     shape=f"B={b} M={m} k={k} P={p} (timed on tie-free keys of this shape)"))
+                     launches_by_path=by_path(cap, "topk_merge"), **first,
+                     max_abs_err_second_level=second.pop("max_abs_err"), second_level=second,
+                     other_shapes=routes))
     for r in rows:
-        require(r["max_abs_err"] == 0.0, f"{r['name']}: kernel differs from its plain version")
+        require(r["max_abs_err"] == 0.0 and r.get("max_abs_err_second_level", 0.0) == 0.0,
+                f"{r['name']}: kernel differs from its plain version")
     return rows
 
 
@@ -876,6 +1009,19 @@ def main(argv=None) -> int:
             f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}) x {r['launches']} launches "
             f"{json.dumps(r['launches_by_path'])} "
             f"[{r['shape']}] on {card}")
+        if "second_level" in r:
+            sl = r["second_level"]
+            for name, lv in (("first level", r), ("second level", sl)):
+                log("kernels", f"{r['name']} {name} ({lv['kernel_route']}): {lv['ms'] * 1e3:.1f} "
+                    f"us/launch (plain {lv['plain_ms'] * 1e3:.1f} us, torch.topk "
+                    f"{lv['library_ms'] * 1e3:.1f} us, bound {lv['bound_ms'] * 1e3:.2f} us by "
+                    f"{lv['bound_by']}, PR 12's formula {lv['bound_ms_pr12_formula'] * 1e3:.2f} us); "
+                    f"on the path's keys ({lv['path_keys_at_3_4e38']:.1%} at 3.4e38) "
+                    f"{lv['ms_path_keys'] * 1e3:.1f} us, torch.topk "
+                    f"{lv['library_ms_path_keys'] * 1e3:.1f} us [{lv['shape']}] on {card}")
+            for shape, o in r["other_shapes"].items():
+                log("kernels", f"{r['name']} {o['kernel_route']} route: {o['ms'] * 1e3:.1f} us/launch "
+                    f"(torch.topk {o['library_ms'] * 1e3:.1f} us) [{shape}] on {card}")
     log("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,10 @@ involved, so a build takes seconds.
 
 The first call that needs a kernel builds all of them at once, one
 ``nvcc`` per source started together.  Libraries are named by a hash of
-their source and flags and go to ``build/repro_torch/`` at the root of
-the checkout (listed in ``.gitignore``); a changed source never loads a
-stale library.  Nothing builds at import time.
+their source, the ``csrc/`` headers it includes and the flags, and go to
+``build/repro_torch/`` at the root of the checkout (listed in
+``.gitignore``); a changed source or header never loads a stale library.
+Nothing builds at import time.
 
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
@@ -24,6 +25,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -55,10 +57,29 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_tag(name: str, csrc: Path = CSRC) -> str:
+    """A hash of ``csrc/<name>.cu``, of every header under ``csrc`` that it
+    includes (``#include "..."``, followed transitively) and of the flags:
+    a changed source or header never loads a stale library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    seen, todo = set(), [f"{name}.cu"]
+    while todo:
+        rel = todo.pop()
+        if rel in seen:
+            continue
+        seen.add(rel)
+        text = (csrc / rel).read_bytes()
+        h.update(rel.encode() + b"\0" + text + b"\0")
+        todo.extend(inc.decode() for inc in _INCLUDE.findall(text)
+                    if (csrc / inc.decode()).is_file())
+    return h.hexdigest()[:16]
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    return BUILD_DIR / f"lib{name}-{source_tag(name)}.so"
 
 
 def build_all(extra_flags: tuple[str, ...] = ()) -> dict[str, str]:
@@ -101,11 +122,12 @@ def library(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def entry(name: str, symbol: str, n_ptrs: int, n_ints: int):
-    """A C entry point taking ``n_ptrs`` pointers, ``n_ints`` ints and the
-    stream, returning a CUDA error code."""
+def entry(name: str, symbol: str, n_ptrs: int, n_ints: int, stream: bool = True):
+    """A C entry point taking ``n_ptrs`` pointers, ``n_ints`` ints and (if
+    ``stream``) the stream, returning an int: a launch's CUDA error code."""
     fn = getattr(library(name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p] * stream)
     fn.restype = ctypes.c_int
     return fn
 

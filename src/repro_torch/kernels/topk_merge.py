@@ -12,10 +12,15 @@ returns pad entries: the output width is ``min(k, P)``, not
 ``min(k, M)``.  Keys must be free of NaN.
 
 The plain version sorts with two stable sorts (by id, then by distance),
-which gives the same unique order as the kernel's bitonic network.  A
-wrapper runs the plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises — also for a P whose keys do not fit in a
-block's shared memory.
+so keys equal as (distance, id) keep their input order; the kernel breaks
+those ties by position, which gives the same rows.  The kernel has three
+routes, chosen by shape in the library (``route`` asks it): for k up to
+32 on many rows a warp selects a row's first k keys, up to 64 otherwise a
+block's radix select does, and above that the TPU kernel's bitonic
+network sorts the row.  A wrapper
+runs the plain version only for CPU tensors; for CUDA tensors it launches
+the kernel or raises — also for a P whose keys do not fit in a block's
+shared memory.
 """
 from __future__ import annotations
 
@@ -26,8 +31,20 @@ from repro_torch.kernels import _build
 NAME = "topk_merge"
 PAD_DIST = 3.4e38
 PAD_ID = 2**31 - 1
-# 8 * P bytes of keys must fit a block's 227 KB of shared memory
+# the network route's 12 * P bytes of keys must fit a block's 227 KB of shared memory
 MAX_WIDTH = 16384
+ROUTES = ("warp_select", "block_select", "network")
+
+
+def route(b: int, m: int, k: int) -> str:
+    """The route the kernel's launcher takes for ``b`` rows of width ``m``
+    and a given ``k`` on the current CUDA device (the library's
+    ``topk_merge_route``; builds it)."""
+    fn = _build.entry(NAME, "topk_merge_route", 0, 3, stream=False)
+    r = fn(b, m, min(k, padded_width(m)))
+    if r < 0:
+        raise RuntimeError("topk_merge_route: the CUDA device could not be queried")
+    return ROUTES[r]
 
 
 def padded_width(m: int) -> int:

@@ -7,7 +7,8 @@ only PyTorch:
     python3 -m pytest tests/test_torch_cuda.py -q
 
 Bit for bit: ADC (all three entries, the brute-force scan included),
-the L2 tree, the fused round on all 11 fields, the top-k merge, and
+the L2 tree, the fused round on all 11 fields (the merge's edges
+included), the top-k merge on its three routes and at the contract's edges, and
 whole searches card vs CPU — on the memory tier and off an index file on
 the disk tier, synchronous and pipelined.  Within
 ``expanded_tolerance``: the expanded L2 form.  The input generators are
@@ -66,6 +67,102 @@ def topk_inputs(seed, m, b=4):
     d[2:] = rng.integers(0, 10, size=(b - 2, m)).astype(np.float32)
     i[2:] = rng.integers(0, max(m // 4, 2), size=(b - 2, m)).astype(np.int32)
     return d, i
+
+
+PAD_ID = 2**31 - 1
+TOPK_EDGE_ROWS = 8
+
+
+def topk_edge_inputs(seed, m, b=TOPK_EDGE_ROWS):
+    """Rows at the edges of the top-k contract, one kind a row (row r takes
+    kind r % 8): 0 random keys, negative ids included; 1 half the keys at
+    +inf (they sort after the pads); 2 most keys at exactly 3.4e38, the
+    pads' distance, where the id breaks the tie (2**31 - 1 included); 3
+    -0.0, +0.0 and 1.0 under a few repeated ids; 4 three finite keys, the
+    rest +inf; 5 duplicate-heavy (10 distances, ids repeated); 6 (±0.0,
+    id 7) only, so the order is the input order; 7 a descending row, so
+    every key improves on the ones before it."""
+    rng = np.random.default_rng(seed)
+    d = np.empty((b, m), np.float32)
+    i = np.empty((b, m), np.int32)
+    for r in range(b):
+        kind = r % 8
+        dr = rng.normal(size=m).astype(np.float32)
+        ir = rng.integers(-1_000_000, 1_000_000, size=m).astype(np.int32)
+        if kind == 1:
+            dr[rng.random(m) < 0.5] = np.inf
+        elif kind == 2:
+            dr[rng.random(m) < 0.8] = np.float32(3.4e38)
+            ir[rng.random(m) < 0.2] = PAD_ID
+            dr[rng.random(m) < 0.05] = np.inf
+        elif kind == 3:
+            dr = rng.choice(np.array([-0.0, 0.0, 1.0], np.float32), size=m)
+            ir = rng.integers(0, 4, size=m).astype(np.int32)
+        elif kind == 4:
+            dr[:] = np.inf
+            dr[rng.choice(m, size=min(3, m), replace=False)] = rng.normal(size=min(3, m))
+        elif kind == 5:
+            dr = rng.integers(0, 10, size=m).astype(np.float32)
+            ir = rng.integers(0, max(m // 4, 2), size=m).astype(np.int32)
+        elif kind == 6:
+            dr = np.where(rng.random(m) < 0.5, np.float32(-0.0), np.float32(0.0))
+            ir[:] = 7
+        elif kind == 7:
+            dr = np.sort(dr)[::-1].copy()
+        d[r], i[r] = dr, ir
+    return d, i
+
+
+def topk_oracle(d, i, k):
+    """The contract from numpy alone: pad each row to the next power of two
+    with (3.4e38, 2**31 - 1), a stable sort by (dist, id) (numpy compares
+    -0.0 equal to +0.0), the first min(k, P), pad ids as -1."""
+    b, m = d.shape
+    p = 1 << (m - 1).bit_length()
+    dp = np.concatenate([d, np.full((b, p - m), np.float32(3.4e38), np.float32)], axis=1)
+    ip = np.concatenate([i, np.full((b, p - m), PAD_ID, np.int32)], axis=1)
+    order = np.stack([np.lexsort((ip[r], dp[r])) for r in range(b)])[:, : min(k, p)]
+    od, oi = np.take_along_axis(dp, order, 1), np.take_along_axis(ip, order, 1)
+    return od, np.where(oi == PAD_ID, -1, oi)
+
+
+# name -> (L, M, W, n_ids): fused rounds at the edges of the merge
+FUSED_EDGE_CASES = {"mostly_dead": (8, 24, 2, 50), "wide": (256, 768, 8, 5000),
+                    "ties": (16, 48, 4, 200), "neg_zero": (16, 48, 4, 200)}
+
+
+def round_edge_inputs(seed, case, *, b=B, c=C, k=K):
+    """A round at an edge of the merge, as numpy arrays:
+    ``mostly_dead`` half the frontier empty and most candidates -1 or
+    copies of frontier ids, so fewer than L keys are finite and dead
+    slots' flags reach the frontier; ``wide`` a 256-slot frontier;
+    ``ties`` integer LUT entries and frontier distances, so distances
+    repeat; ``neg_zero`` a LUT of mostly 0.0 and frontier distances of
+    -0.0 and +0.0.  The frontier is not sorted."""
+    l, m, _, n_ids = FUSED_EDGE_CASES[case]
+    rng = np.random.default_rng(seed)
+    fid = np.stack([rng.choice(n_ids, size=l, replace=False) for _ in range(b)]).astype(np.int32)
+    fid[:, l // 2 if case == "mostly_dead" else l - 2:] = -1
+    fd = np.where(fid >= 0, rng.random((b, l)) * 4, np.float32(3.4e38)).astype(np.float32)
+    fexp = (rng.random((b, l)) < 0.3) & (fid >= 0)
+    fpas = rng.random((b, l)) < 0.5
+    nid = rng.integers(-1, n_ids, size=(b, m)).astype(np.int32)
+    lut = (rng.random((b, c, k)) * 2).astype(np.float32)
+    if case == "mostly_dead":
+        copies = np.take_along_axis(fid, rng.integers(0, 3, size=(b, m)), 1)
+        nid = np.where(rng.random((b, m)) < 0.5, -1, copies).astype(np.int32)
+        nid[:, 0] = n_ids - 1  # one fresh id a row
+    elif case == "ties":
+        lut = rng.integers(0, 3, size=(b, c, k)).astype(np.float32)
+        fd = np.where(fid >= 0, rng.integers(0, 3 * c, size=(b, l)),
+                      np.float32(3.4e38)).astype(np.float32)
+    elif case == "neg_zero":
+        lut = np.where(rng.random((b, c, k)) < 0.9, 0.0, 1.0).astype(np.float32)
+        zeros = np.where(rng.random((b, l)) < 0.5, np.float32(-0.0), np.float32(0.0))
+        fd = np.where(fid >= 0, zeros, np.float32(3.4e38)).astype(np.float32)
+    nc = rng.integers(0, k, size=(b, m, c)).astype(np.int32)
+    npas = rng.random((b, m)) < 0.5
+    return fid, fd, fexp, fpas, nid, nc, npas, lut, fid[:, 0].copy()
 
 
 def round_inputs(seed, m, *, dup_ids=False, all_filtered=False):
@@ -142,6 +239,55 @@ def test_card_fused_bit_identical(cuda, mode, case):
     assert_round_equal(got, want, (mode, case, "card"))
 
 
+@pytest.mark.parametrize("case", sorted(FUSED_EDGE_CASES))
+@pytest.mark.parametrize("mode", MODES)
+def test_card_fused_edges(cuda, mode, case):
+    """The merge's edges on the card, gathered and by id, at the search
+    loop's C = 32 and K = 256: all 11 fields bit for bit."""
+    _, _, w, n_ids = FUSED_EDGE_CASES[case]
+    state = [torch.from_numpy(x).to(cuda)
+             for x in round_edge_inputs(41 + MODES.index(mode), case, b=16, c=32, k=256)]
+    got = tft.fused_traversal_round(*state, mode=mode, width=w)
+    want = tft.fused_traversal_round_ref(*state, mode=mode, width=w)
+    assert_round_equal(got, want, (mode, case, "card"))
+    assert torch.equal(got.frontier_dists.view(torch.int32), want.frontier_dists.view(torch.int32))
+    table = torch.randint(0, 256, (n_ids, 32), dtype=torch.int32, device=cuda)
+    by_id = state[:5] + [table] + state[6:]
+    got = tft.fused_traversal_round(*by_id, mode=mode, width=w, gathered=False)
+    want = tft.fused_traversal_round_ref(*by_id, mode=mode, width=w, gathered=False)
+    assert_round_equal(got, want, (mode, case, "card by id"))
+
+
+def at_offset(t):
+    """A contiguous copy of ``t`` whose data starts one element (4 bytes)
+    past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)[1:1 + t.numel()]
+    out = out.view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("path", ["c6", "offset"])
+def test_card_fused_alternate_loads(cuda, path):
+    """The fused round's other load paths: scalar code loads (C = 6, or
+    code rows 4 bytes off a 16-byte boundary) and a LUT copied without
+    cp.async (a LUT 4 bytes off); all 11 fields bit for bit in all five
+    modes, gathered and by id."""
+    c, k = (6, 16) if path == "c6" else (32, 256)
+    _, _, w, n_ids = FUSED_EDGE_CASES["ties"]
+    state = [torch.from_numpy(x).to(cuda) for x in round_edge_inputs(47, "ties", b=16, c=c, k=k)]
+    table = torch.randint(0, k, (n_ids, c), dtype=torch.int32, device=cuda)
+    if path == "offset":
+        state[5], state[7], table = at_offset(state[5]), at_offset(state[7]), at_offset(table)
+        assert all(t.data_ptr() % 16 == 4 for t in (state[5], state[7], table))
+    for mode in MODES:
+        for gathered, codes in ((True, state[5]), (False, table)):
+            args = state[:5] + [codes] + state[6:]
+            got = tft.fused_traversal_round(*args, mode=mode, width=w, gathered=gathered)
+            want = tft.fused_traversal_round_ref(*args, mode=mode, width=w, gathered=gathered)
+            assert_round_equal(got, want, (mode, path, gathered))
+
+
 def test_card_search_equals_cpu(cuda):
     """A small index searched on the card (kernels) and on the CPU (plain
     versions): ids, distances and stats bit-identical in every mode."""
@@ -186,6 +332,47 @@ def test_card_topk_merge_bit_identical(cuda, m):
         assert got[0].shape == (64, min(k, ttk.padded_width(m)))
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (m, k)
     assert _build.LAUNCHES["topk_merge"] == before + 4
+
+
+def warp_rows(cuda):
+    """A batch with enough rows for the warp route (24 warps an SM)."""
+    return 32 * torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
+@pytest.mark.parametrize("m", [5, 768, 1000, 10_000])
+def test_card_topk_merge_edges(cuda, m):
+    """All three routes (the block's selection at k = 10, 32, 33 and 64 on
+    64 rows, the warp's at k = 10 and 32 on enough rows to take it, the
+    network at 2048) on the edge rows: +inf keys, keys at the pads' 3.4e38,
+    -0.0 against +0.0, fewer finite keys than k; bit for bit against the
+    plain version, and on 64 rows the numpy oracle."""
+    before = _build.LAUNCHES["topk_merge"]
+    n = 0
+    for b, ks in ((64, (10, 32, 33, 64, 2048)), (warp_rows(cuda), (10, 32))):
+        d, i = topk_edge_inputs(60 + m, m, b=b)
+        td, ti = torch.from_numpy(d).to(cuda), torch.from_numpy(i).to(cuda)
+        for k in ks:
+            got, want = ttk.topk_merge(td, ti, k), ttk.topk_merge_ref(td, ti, k)
+            n += 1
+            for g, w in ((got[0].view(torch.int32), want[0].view(torch.int32)), (got[1], want[1])):
+                assert torch.equal(g, w), (b, m, k, ttk.route(b, m, k))
+            if b == 64:
+                od, oi = topk_oracle(d, i, k)
+                assert np.array_equal(got[0].cpu().numpy().view(np.uint32), od.view(np.uint32))
+                assert np.array_equal(got[1].cpu().numpy(), oi), (m, k)
+    assert _build.LAUNCHES["topk_merge"] == before + n
+
+
+def test_card_topk_merge_routes(cuda):
+    """The launcher's route rule: the network above min(k, P) = 64, the
+    warp for min(k, P) <= 32 once B times its warps a row reaches 24 an SM,
+    else the block."""
+    many = warp_rows(cuda)
+    got = [ttk.route(b, m, k) for b, m, k in (
+        (many, 1000, 10), (many, 1000, 32), (many, 1000, 33), (many, 1000, 65), (64, 1000, 10),
+        (64, 40, 64), (many, 5, 2048), (many // 10, 10_000, 10), (64, 10_000, 10))]
+    assert got == ["warp_select", "warp_select", "block_select", "network", "block_select",
+                   "block_select", "warp_select", "warp_select", "block_select"]
 
 
 def test_card_topk_merge_refuses_rows_beyond_shared_memory(cuda):

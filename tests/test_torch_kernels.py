@@ -17,7 +17,16 @@ interpret mode and against ``repro.kernels.ref``:
   * the brute-force ADC scan: bit for bit at C = 8, 16, within
     C * eps * value at C = 32 (the tolerance of the gathered ADC);
   * the top-k merge: exact distances and ids, duplicate-heavy rows
-    included, at M in {5, 64, 100, 768} and k in {1, 10, M, 2M}.
+    included, at M in {5, 64, 100, 768} and k in {1, 10, M, 2M}; and at
+    the contract's edges (+inf keys after the pads, ties at the pads'
+    3.4e38, -0.0 against +0.0, fewer finite keys than k) against
+    ``ref.topk_merge_ref`` on padded rows, a numpy oracle and the Pallas
+    kernel, for k on all three kernel routes;
+  * the fused twin at the merge's edges (mostly dead rounds, L = 256,
+    quantised and signed-zero distances) and at C = 6 against the
+    reference's twin;
+  * the kernel build's cache tag, which follows the headers a source
+    includes.
 
 The CUDA kernels themselves are held to these plain versions on the card
 by ``tests/test_torch_cuda.py``.
@@ -43,8 +52,9 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import pq_lookup as tpq  # noqa: E402
 from repro_torch.kernels import topk_merge as ttk  # noqa: E402
 from test_torch_cuda import (  # noqa: E402
-    CASES, L, N_IDS, W, B, K, C, adc_inputs, assert_round_equal, l2_inputs, round_inputs,
-    scan_inputs, topk_inputs,
+    CASES, FUSED_EDGE_CASES, L, N_IDS, W, B, K, C, PAD_ID, adc_inputs, assert_round_equal,
+    l2_inputs, round_edge_inputs, round_inputs, scan_inputs, topk_edge_inputs, topk_inputs,
+    topk_oracle,
 )
 
 MODES = ("gate", "post", "early", "pre_naive", "unfiltered")
@@ -111,8 +121,9 @@ def test_l2_expanded_within_tolerance_of_pallas_and_ref():
 
 
 def test_entry_arities_match_the_sources():
-    """Each wrapper declares its C entry point's pointers and ints as the
-    source defines them (ctypes would pass a wrong count silently short)."""
+    """Each wrapper declares its C entry point's pointers, ints and stream
+    as the source defines them (ctypes would pass a wrong count silently
+    short)."""
     import re
     from pathlib import Path
 
@@ -121,14 +132,16 @@ def test_entry_arities_match_the_sources():
     sigs = {}
     for cu in _build.CSRC.glob("*.cu"):
         for sym, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', cu.read_text()):
-            params = [p.strip() for p in params.split(",")][:-1]  # the stream goes last
-            sigs[sym] = (sum("*" in p for p in params), sum("*" not in p for p in params))
+            params = [p.strip() for p in params.split(",")]
+            stream = params[-1].startswith("cudaStream_t")
+            params = params[:-1] if stream else params
+            sigs[sym] = (sum("*" in p for p in params), sum("*" not in p for p in params), stream)
     declared = {}
     for py in Path(_build.__file__).parent.glob("*.py"):
-        for sym, n_ptrs, n_ints in re.findall(r'entry\(\w+, "(\w+)", (\d+), (\d+)\)',
-                                              py.read_text()):
-            declared[sym] = (int(n_ptrs), int(n_ints))
-    assert set(declared) == set(sigs) and len(sigs) == 5
+        for sym, n_ptrs, n_ints, no_stream in re.findall(
+                r'entry\(\w+, "(\w+)", (\d+), (\d+)(, stream=False)?\)', py.read_text()):
+            declared[sym] = (int(n_ptrs), int(n_ints), not no_stream)
+    assert set(declared) == set(sigs) and len(sigs) == 6
     assert declared == sigs
 
 
@@ -206,6 +219,66 @@ def test_topk_merge_pallas_at_the_loop_k():
     np.testing.assert_array_equal(_np(gi), _np(wi))
 
 
+@pytest.mark.parametrize("m", [5, 40, 100, 300, 1000])
+def test_topk_merge_edges_match_ref_and_oracle(m):
+    """The edge rows (+inf real keys after the pads, real keys at the
+    pads' 3.4e38 with ids up to 2**31 - 1, -0.0 against +0.0, fewer finite
+    keys than k, a descending row) for k on all three kernel routes: the plain
+    version equals ``ref.topk_merge_ref`` on the contract's padded rows
+    and the numpy oracle, dists bit for bit (the sign of zero included)."""
+    d, i = topk_edge_inputs(80 + m, m)
+    p = ttk.padded_width(m)
+    dp = np.concatenate([d, np.full((d.shape[0], p - m), np.float32(3.4e38), np.float32)], 1)
+    ip = np.concatenate([i, np.full((d.shape[0], p - m), PAD_ID, np.int32)], 1)
+    for k in (10, 32, 33, 64, 65, 2048):
+        gd, gi = (_np(x) for x in ttk.topk_merge(torch.from_numpy(d), torch.from_numpy(i), k))
+        kk = min(k, p)
+        rd, ri = (_np(x) for x in kref.topk_merge_ref(jnp.asarray(dp), jnp.asarray(ip), kk))
+        ri = np.where(ri == PAD_ID, -1, ri)
+        od, oi = topk_oracle(d, i, k)
+        for want_d, want_i, who in ((rd, ri, "ref"), (od, oi, "oracle")):
+            np.testing.assert_array_equal(gd.view(np.uint32), want_d.view(np.uint32),
+                                          err_msg=f"{who} dists k={k}")
+            np.testing.assert_array_equal(gi, want_i, err_msg=f"{who} ids k={k}")
+
+
+@pytest.mark.parametrize("m", [5, 100])
+def test_topk_merge_edges_match_pallas(m):
+    """The Pallas network in interpret mode on the edge rows whose keys
+    differ as (dist, id) or are equal in every bit (rows of kind 3 and 6
+    put -0.0 and +0.0 under one id, where a network's order is its own):
+    +inf keys after the pads, 3.4e38 ties broken by id, M not a power of
+    two."""
+    d, i = topk_edge_inputs(90 + m, m)
+    rows = [r for r in range(d.shape[0]) if r % 8 not in (3, 6)]
+    d, i = d[rows], i[rows]
+    k = 2 * m  # the full width P: every k's output is a prefix of it
+    pd, pi = (_np(x) for x in jops.topk_merge(jnp.asarray(d), jnp.asarray(i), k))
+    gd, gi = (_np(x) for x in ttk.topk_merge(torch.from_numpy(d), torch.from_numpy(i), k))
+    np.testing.assert_array_equal(gd.view(np.uint32), pd.view(np.uint32))
+    np.testing.assert_array_equal(gi, pi)
+
+
+def test_build_tag_covers_included_headers(tmp_path):
+    """A library's tag changes with any csrc header its source includes
+    (followed transitively), and not with a header it does not include."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint x;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("int b = 1;\n")
+    (tmp_path / "other.cuh").write_text("int o = 1;\n")
+    tag = _build.source_tag("k", tmp_path)
+    (tmp_path / "other.cuh").write_text("int o = 2;\n")
+    assert _build.source_tag("k", tmp_path) == tag
+    (tmp_path / "b.cuh").write_text("int b = 2;\n")
+    changed = _build.source_tag("k", tmp_path)
+    assert changed != tag
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint y;\n')
+    assert _build.source_tag("k", tmp_path) not in (tag, changed)
+    assert len({_build.source_tag(n) for n in _build.SOURCES}) == len(_build.SOURCES)
+
+
 def test_topk_merge_refuses_bad_inputs():
     d, i = torch.zeros((2, 5)), torch.zeros((2, 5), dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -227,6 +300,41 @@ def test_fused_twin_matches_reference_twin(mode, case):
     want = kref.fused_traversal_round_ref(*(jnp.asarray(x) for x in state), mode=mode, width=W)
     got = tft.fused_traversal_round(*(torch.from_numpy(x) for x in state), mode=mode, width=W)
     assert_round_equal(got, want, (mode, case))
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_EDGE_CASES))
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_twin_edges_match_reference_twin(mode, case):
+    """Mostly dead rounds (fewer than L finite keys, so dead slots' flags
+    reach the frontier), a 256-slot frontier, tie-heavy and signed-zero
+    distances: the twin equals ``ref.fused_traversal_round_ref`` on all
+    11 fields, the bits of every distance included."""
+    l, m, w, _ = FUSED_EDGE_CASES[case]
+    state = round_edge_inputs(100 + 10 * MODES.index(mode) + sorted(FUSED_EDGE_CASES).index(case),
+                              case)
+    want = kref.fused_traversal_round_ref(*(jnp.asarray(x) for x in state), mode=mode, width=w)
+    got = tft.fused_traversal_round(*(torch.from_numpy(x) for x in state), mode=mode, width=w)
+    assert_round_equal(got, want, (mode, case))
+    np.testing.assert_array_equal(_np(got.frontier_dists).view(np.uint32),
+                                  _np(want.frontier_dists).view(np.uint32))
+    if case == "mostly_dead":
+        assert (_np(got.frontier_ids) < 0).sum(1).min() > 0  # dead slots were kept
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_twin_at_c_not_a_multiple_of_4(mode):
+    """C = 6 (the kernel's scalar code loads) with K = 16: the twin equals
+    ``ref.fused_traversal_round_ref`` on all 11 fields, gathered and by id."""
+    state = round_edge_inputs(120 + MODES.index(mode), "ties", c=6, k=16)
+    _, _, w, n_ids = FUSED_EDGE_CASES["ties"]
+    table = np.random.default_rng(121).integers(0, 16, size=(n_ids, 6)).astype(np.int32)
+    rows = state[:5] + (table[np.maximum(state[4], 0)],) + state[6:]
+    want = kref.fused_traversal_round_ref(*(jnp.asarray(x) for x in rows), mode=mode, width=w)
+    for gathered, codes in ((True, rows[5]), (False, table)):
+        args = state[:5] + (codes,) + state[6:]
+        got = tft.fused_traversal_round(*(torch.from_numpy(x) for x in args), mode=mode,
+                                        width=w, gathered=gathered)
+        assert_round_equal(got, want, (mode, "C=6", gathered))
 
 
 def test_fused_twin_matches_pallas_kernel():
