@@ -10,7 +10,8 @@ PyTorch version on the card.  Phases, each printing its own lines:
   1. device: the card's name and power limit (``nvidia-smi``), torch and
      CUDA versions; TF32 off for matrix products and convolutions;
   2. kernels against their plain versions at the paths' shapes (ADC both
-     entries, L2 tree bit for bit and expanded within tolerance, the fused
+     entries on both routes and at their edges, the scan on both routes,
+     L2 tree bit for bit and expanded within tolerance, the fused
      round bit for bit on all 11 fields in all five modes, adversarial
      rounds and the merge's edges included, the brute-force scan over
      1,000,000 codes, and the top-k merge on both of its routes on random,
@@ -53,6 +54,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -98,16 +100,40 @@ def same(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
 
 # ---------------------------------------------------------------- phase 2
 def check_adc(dev, n, rng) -> None:
+    """Both entries on both routes (the LUT read from global memory when a
+    query has fewer rows than K, else staged in shared memory) at the
+    loop's shapes and at the edges, bit for bit."""
     b, m, c, k = BATCH, 8 * (DEGREE + R_MAX), PQ_CHUNKS, 256
-    lut = torch.from_numpy((rng.random((b, c, k)) * 1000).astype(np.float32)).to(dev)
-    codes_bm = torch.from_numpy(rng.integers(0, k, (b, m, c)).astype(np.int32)).to(dev)
-    same(pqk.pq_lookup_gathered(lut, codes_bm), pqk.pq_lookup_gathered_ref(lut, codes_bm),
-         "pq_lookup_gathered")
     table = torch.from_numpy(rng.integers(0, k, (n, c)).astype(np.int32)).to(dev)
-    ids = torch.from_numpy(rng.integers(-1, n, (b, m)).astype(np.int32)).to(dev)
-    ids[:, :64] = -1
-    same(pqk.adc_ids(lut, table, ids), pqk.adc_ids_ref(lut, table, ids), "adc_ids")
-    log("kernels", f"ADC bit-identical: gathered ({b},{m},{c}) and by id over {n} codes, ids of -1 included")
+    routes = set()
+    # (what, B, M, C, K, share of live ids, tensors 4 bytes off 16-byte alignment)
+    for what, bb, mm, cc, kk, live, off in (
+            ("loop round", b, m, c, k, 0.3, False), ("all ids live", b, m, c, k, 1.0, False),
+            ("entry M=1", b, 1, c, k, 1.0, False), ("M=1500, two tiles", 64, 1500, c, k, 0.5, False),
+            ("B=1", 1, m, c, k, 0.7, False), ("ids all -1", b, m, c, k, 0.0, False),
+            ("C=6 K=16", 40, 300, 6, 16, 0.8, False), ("C=6 K=16 M=7", 40, 7, 6, 16, 0.8, False),
+            ("4-byte offset", b, m, c, k, 0.5, True), ("4-byte offset M=1", b, 1, c, k, 1.0, True)):
+        lut = torch.from_numpy((rng.random((bb, cc, kk)) * 1000).astype(np.float32)).to(dev)
+        tab = table if (cc, kk) == (c, k) else torch.from_numpy(
+            rng.integers(0, kk, (50_000, cc)).astype(np.int32)).to(dev)
+        ids = rng.integers(0, tab.shape[0], (bb, mm)).astype(np.int32)
+        ids[rng.random((bb, mm)) >= live] = -1
+        ids = torch.from_numpy(ids).to(dev)
+        codes = torch.from_numpy(rng.integers(0, kk, (bb, mm, cc)).astype(np.int32)).to(dev)
+        want_ids = pqk.adc_ids_ref(lut, tab, ids)
+        want_g = pqk.pq_lookup_gathered_ref(lut, codes)
+        if off:
+            lut, tab, codes = at_offset(lut), at_offset(tab), at_offset(codes)
+            require(all(t.data_ptr() % 16 == 4 for t in (lut, tab, codes)), f"{what}: aligned")
+        route = pqk.adc_route(mm, kk)
+        same(pqk.adc_ids(lut, tab, ids), want_ids, f"adc_ids {what} ({route})")
+        same(pqk.pq_lookup_gathered(lut, codes), want_g, f"pq_lookup_gathered {what} ({route})")
+        routes.add(route)
+    require(routes == set(pqk.ADC_ROUTES), f"ADC routes checked: {routes}")
+    log("kernels", f"ADC bit-identical, gathered and by id over {n} codes, on both routes "
+        f"({', '.join(sorted(routes))}): the loop's round ({b},{m},{c}) 30% and 100% live, "
+        "M=1, M=1500 (two tiles a query), B=1, every id -1, C=6 K=16 (scalar loads) and "
+        "codes and LUT 4 bytes off 16-byte alignment (scalar loads, no TMA)")
 
 
 def check_l2(dev, rng) -> None:
@@ -239,11 +265,27 @@ def at_offset(t: torch.Tensor) -> torch.Tensor:
 
 
 def check_scan(dev, n, rng) -> None:
-    b, c, k = SCAN_BATCH, PQ_CHUNKS, 256
-    lut = torch.from_numpy((rng.random((b, c, k)) * 1000).astype(np.float32)).to(dev)
-    codes = torch.from_numpy(rng.integers(0, k, (n, c)).astype(np.int32)).to(dev)
-    same(pqk.pq_scan(lut, codes), pqk.pq_scan_ref(lut, codes), "pq_scan")
-    log("kernels", f"pq_scan bit-identical: ({b},{c},{k}) LUTs over {n} codes")
+    """Both routes (codes packed to bytes in registers when K <= 256 and
+    C <= 32, else unpacked) at the path's shape and at the edges."""
+    routes = set()
+    # (what, B, N, C, K, tensors 4 bytes off 16-byte alignment)
+    for what, b, nn, c, k, off in (
+            ("path", SCAN_BATCH, n, PQ_CHUNKS, 256, False), ("C=6 K=16", 3, 5000, 6, 16, False),
+            ("K=16", 5, 3000, PQ_CHUNKS, 16, False), ("B=1", 1, 10_007, PQ_CHUNKS, 256, False),
+            ("B=65", 65, 30_001, PQ_CHUNKS, 256, False), ("N=300 < tile", 4, 300, PQ_CHUNKS, 256, False),
+            ("4-byte offset", 4, 10_007, PQ_CHUNKS, 256, True), ("K=512", 4, 3000, 8, 512, False)):
+        lut = torch.from_numpy((rng.random((b, c, k)) * 1000).astype(np.float32)).to(dev)
+        codes = torch.from_numpy(rng.integers(0, k, (nn, c)).astype(np.int32)).to(dev)
+        want = pqk.pq_scan_ref(lut, codes)
+        if off:
+            lut, codes = at_offset(lut), at_offset(codes)
+        route = pqk.scan_route(c, k)
+        same(pqk.pq_scan(lut, codes), want, f"pq_scan {what} ({route})")
+        routes.add(route)
+    require(routes == set(pqk.SCAN_ROUTES), f"scan routes checked: {routes}")
+    log("kernels", f"pq_scan bit-identical on both routes ({', '.join(sorted(routes))}): "
+        f"({SCAN_BATCH},{PQ_CHUNKS},256) LUTs over {n} codes, C=6 K=16, K=16, B=1, B=65, "
+        "N=300 (below one tile), tensors 4 bytes off 16-byte alignment, K=512")
 
 
 def topk_keys(rng, b, m, dup: bool):
@@ -393,6 +435,9 @@ class Capture:
     def __init__(self, at_call: int = 6):
         self.at_call, self.calls, self.args = at_call, {}, {}
         self.saved = []
+        # the ids of every adc_ids call in one gate-unfused batch (distinct
+        # id sets, for the round-robin timing), recorded while phase says so
+        self.phase, self.adc_rounds = None, []
         self.launches = {}  # path -> its kernel launches, each counted from 0
         # the scan path: its third batch's scan, first-level merge (under
         # "topk_merge") and second-level merge (under "topk_merge_2")
@@ -403,6 +448,8 @@ class Capture:
 
         def recorder(*args, **kwargs):
             self.calls[key] = self.calls.get(key, 0) + 1
+            if key == "pq_lookup" and self.phase == "gate_unfused":
+                self.adc_rounds.append(args[2].clone())
             at = self.at.get(key, (self.at_call,))
             if self.calls[key] in at:
                 clone = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
@@ -470,9 +517,11 @@ def search_phase(eng, q, targets, gt, card: str, cap: Capture) -> dict:
         "post": SearchConfig(mode="post", **SEARCH),
     }
     with cap:  # warm-up batch, untimed: loads the kernels, records real rounds
-        for cfg in configs.values():
+        for name, cfg in configs.items():
+            cap.phase = name
             eng.search(q[:BATCH], filter_kind="label", filter_params=targets[:BATCH],
                        search_config=cfg)
+        cap.phase = None
     torch.cuda.synchronize()
 
     # each path's launches are counted from 0 just before it and read just after
@@ -829,13 +878,35 @@ def kernel_line(cap: Capture) -> list[dict]:
     n_valid = int((ids >= 0).sum())
     err = float((pqk.adc_ids(lut, codes, ids) - pqk.adc_ids_ref(lut, codes, ids)).abs().max())
     bnd = bound(lut.numel() * 4 + ids.numel() * 4 + n_valid * c * 4 + b * m * 4, n_valid * c)
+    # one batch's rounds in turn (distinct id sets: their code rows are not
+    # all in L2 from the call before), and the loop's entry call (M = 1)
+    rounds = [r for r in cap.adc_rounds if r.shape[1] == m]
+    entry = next(r for r in cap.adc_rounds if r.shape[1] == 1)
+    turn = iter(range(1 << 30))
+    ms_rounds = time_ms(lambda: pqk.adc_ids(lut, codes, rounds[next(turn) % len(rounds)]),
+                        reps=len(rounds))
+    # the library yardstick: F.embedding_bag(mode="sum") over flat indices
+    # b*C*K + c*K + code (built beforehand, timed apart; ids < 0 not sent to +INF)
+    offs = (torch.arange(b, device=lut.device, dtype=torch.int32)[:, None, None] * (c * k)
+            + torch.arange(c, device=lut.device, dtype=torch.int32)[None, None, :] * k)
+    flat = lambda: (offs + codes[ids.clamp(min=0).long()]).reshape(-1, c)  # noqa: E731
+    idx, table = flat(), lut.reshape(-1, 1)
     rows.append(dict(name="pq_lookup.adc_ids", route="cuda", source="src/repro_torch/csrc/pq_lookup.cu",
                      replaces="src/repro/kernels/pq_lookup.py:81", launches=total(cap, "pq_lookup"),
                      launches_by_path=by_path(cap, "pq_lookup"),
                      max_abs_err=err, ms=time_ms(lambda: pqk.adc_ids(lut, codes, ids)),
+                     kernel_route=pqk.adc_route(m, k),
+                     ms_round_robin=ms_rounds, round_robin_rounds=len(rounds),
+                     ms_entry=time_ms(lambda: pqk.adc_ids(lut, codes, entry)),
+                     entry_route=pqk.adc_route(1, k),
                      plain_ms=time_ms(lambda: pqk.adc_ids_ref(lut, codes, ids)),
-                     bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                     bound_ms=bnd[0], bound_by=bnd[1],
+                     library_ms=time_ms(lambda: F.embedding_bag(idx, table, mode="sum")),
+                     library_index_ms=time_ms(flat),
+                     library_note="F.embedding_bag(mode='sum') on flat indices b*C*K + c*K + code, "
+                                  "built beforehand (library_index_ms); ids < 0 not sent to +INF",
                      shape=f"B={b} M={m} C={c} K={k} valid_ids={n_valid}"))
+    del idx, flat
     # exact L2, tree form (the main path's use_kernel=False)
     (q, vecs), kw = cap.args["l2_dist"]
     b, w, d = vecs.shape
@@ -879,15 +950,48 @@ def kernel_line(cap: Capture) -> list[dict]:
     n = codes.shape[0]
     err = float((pqk.pq_scan(lut, codes) - pqk.pq_scan_ref(lut, codes)).abs().max())
     bnd = bound(lut.numel() * 4 + codes.numel() * 4 + b * n * 4, b * n * c)
+    # the shared-memory lookups' floor: one 4-byte lookup a lane, 32 lanes a
+    # cycle on each SM, no bank conflicts
+    sms = torch.cuda.get_device_properties(lut.device).multi_processor_count
+    lookup_ms = b * n * c / (sms * 32 * SPIN_CYCLES_PER_S) * 1e3
+    # beside it, the floor with this table's bank conflicts: a warp's lanes
+    # take 32 consecutive rows, and a lookup instruction takes as many
+    # cycles as the most distinct words its lanes read from one of the 32
+    # banks (lanes on one code share a word; bank = code % 32 when K % 32 == 0)
+    ways, warps = 0.0, n // 32
+    for w0 in range(0, warps, 4096):
+        w1 = min(warps, w0 + 4096)
+        key = (torch.arange((w1 - w0) * c, device=codes.device).view(w1 - w0, 1, c) * k
+               + codes[w0 * 32:w1 * 32].view(w1 - w0, 32, c).long())
+        seen = torch.bincount(key.flatten(), minlength=(w1 - w0) * c * k).view(-1, k // 32, 32) > 0
+        ways += float(seen.sum(1).max(1).values.double().sum())
+    ways /= warps * c
+    # the library yardstick on (B*N, C) int32 flat indices, all of N where
+    # they fit in half the free device memory, else the first rows
+    free = torch.cuda.mem_get_info(lut.device)[0]
+    n_lib = min(n, int(free // 2 // (b * c * 4 + b * 4)))
+    offs = (torch.arange(b, device=lut.device, dtype=torch.int32)[:, None, None] * (c * k)
+            + torch.arange(c, device=lut.device, dtype=torch.int32)[None, None, :] * k)
+    flat = lambda: (offs + codes[None, :n_lib]).reshape(-1, c)  # noqa: E731
+    idx, table = flat(), lut.reshape(-1, 1)
+    lib_out = F.embedding_bag(idx, table, mode="sum").reshape(b, n_lib)
+    lib_err = float((lib_out - pqk.pq_scan_ref(lut, codes[:n_lib])).abs().max())
+    del lib_out
     rows.append(dict(name="pq_scan", route="cuda", source="src/repro_torch/csrc/pq_lookup.cu",
                      replaces="src/repro/kernels/pq_lookup.py:125", launches=total(cap, "pq_scan"),
                      launches_by_path=by_path(cap, "pq_scan"), max_abs_err=err,
+                     kernel_route=pqk.scan_route(c, k),
                      ms=time_ms(lambda: pqk.pq_scan(lut, codes), reps=20),
                      plain_ms=time_ms(lambda: pqk.pq_scan_ref(lut, codes), reps=5),
-                     bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
-                     library_note="no single PyTorch call sums per-query LUT entries picked by a "
-                                  "shared code table",
+                     bound_ms=bnd[0], bound_by=bnd[1], bound_lookup_ms=lookup_ms,
+                     lookup_bank_ways=ways, bound_lookup_conflict_ms=lookup_ms * ways,
+                     library_ms=time_ms(lambda: F.embedding_bag(idx, table, mode="sum"), reps=3),
+                     library_index_ms=time_ms(flat, reps=3), library_rows=n_lib,
+                     library_max_abs_err=lib_err,
+                     library_note=f"F.embedding_bag(mode='sum') on (B*{n_lib}, C) int32 flat "
+                                  "indices b*C*K + c*K + code, built beforehand (library_index_ms)",
                      shape=f"B={b} N={n} C={c} K={k}"))
+    del idx, flat
     # top-k merge at the scan path's first-level shape (and, beside it, the
     # second level's), timed on tie-free keys of that shape so that
     # torch.topk computes the same function, and on the path's own keys
@@ -1009,6 +1113,19 @@ def main(argv=None) -> int:
             f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}) x {r['launches']} launches "
             f"{json.dumps(r['launches_by_path'])} "
             f"[{r['shape']}] on {card}")
+        if "ms_round_robin" in r:
+            log("kernels", f"{r['name']} ({r['kernel_route']} route): one batch's "
+                f"{r['round_robin_rounds']} rounds in turn {r['ms_round_robin'] * 1e3:.1f} us/launch; "
+                f"the loop's entry (M=1, {r['entry_route']} route) {r['ms_entry'] * 1e3:.1f} us; "
+                f"F.embedding_bag {r['library_ms'] * 1e3:.1f} us + its index build "
+                f"{r['library_index_ms'] * 1e3:.1f} us on {card}")
+        if "bound_lookup_ms" in r:
+            log("kernels", f"{r['name']} ({r['kernel_route']} route): shared-memory lookup floor "
+                f"{r['bound_lookup_ms'] * 1e3:.2f} us ({r['bound_lookup_conflict_ms'] * 1e3:.2f} us at "
+                f"this table's {r['lookup_bank_ways']:.3f}-way bank conflicts) beside the byte bound "
+                f"{r['bound_ms'] * 1e3:.2f} us; F.embedding_bag over {r['library_rows']} rows "
+                f"{r['library_ms'] * 1e3:.1f} us + its index build {r['library_index_ms'] * 1e3:.1f} us "
+                f"(max |err| {r['library_max_abs_err']:g}) on {card}")
         if "second_level" in r:
             sl = r["second_level"]
             for name, lv in (("first level", r), ("second level", sl)):

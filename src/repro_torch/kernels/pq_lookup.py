@@ -19,6 +19,13 @@ All sum c = 0..C-1 left to right; the plain versions below use the same
 order, so kernel and plain version agree bit for bit.  A wrapper runs the
 plain version only for CPU tensors; for CUDA tensors it launches the
 kernel or raises.  Codes must lie in [0, K): the kernels do not check.
+
+Each kernel has two routes, chosen by shape in the library (``adc_route``
+and ``scan_route`` ask it; neither is a fallback on failure): the ADC
+stages a query's LUT in shared memory unless the query has fewer rows
+than the LUT has entries a chunk (M < K), when it reads the LUT from
+global memory; the scan packs each row's codes into bytes in registers
+when K <= 256 and C <= 32, and reads them unpacked otherwise.
 """
 from __future__ import annotations
 
@@ -29,6 +36,24 @@ from repro_torch.kernels import _build
 NAME = "pq_lookup"
 SCAN_NAME = "pq_scan"
 INF = 3.4e38
+ADC_ROUTES = ("direct", "staged")
+SCAN_ROUTES = ("packed", "wide")
+_INT_MAX = 2**31 - 1  # sizes travel as C ints; a grid's x holds at most this many blocks
+# either ADC route launches at most B * ceil(M / 32) blocks (pq_lookup.cu:
+# kDirectThreads rows a block, or tiles of at least kAdcThreads rows)
+_ADC_ROWS_PER_BLOCK = 32
+
+
+def adc_route(m: int, k: int) -> str:
+    """The route the ADC launcher takes for M rows a query and K codes a
+    chunk (the library's ``pq_lookup_route``; builds it)."""
+    return ADC_ROUTES[_build.entry(NAME, "pq_lookup_route", 0, 2, stream=False)(m, k)]
+
+
+def scan_route(c: int, k: int) -> str:
+    """The route the scan's launcher takes for C chunks of K codes (the
+    library's ``pq_scan_route``; builds it)."""
+    return SCAN_ROUTES[_build.entry(NAME, "pq_scan_route", 0, 2, stream=False)(c, k)]
 
 
 def pq_lookup_gathered_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -68,8 +93,8 @@ def _check(lut, codes, ids=None):
 def _launch(lut, codes, ids, out, b, m, by_id):
     if not all(t.is_contiguous() for t in (lut, codes, ids, out) if t is not None):
         raise ValueError("pq_lookup wants contiguous tensors")
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid limit of 65535 queries")
+    if max(b, m) > _INT_MAX or b * -(-m // _ADC_ROWS_PER_BLOCK) > _INT_MAX:
+        raise ValueError(f"B = {b} queries of M = {m} rows exceed the kernel's grid limit")
     if b == 0 or m == 0:  # nothing to compute: no launch, and none counted
         return out
     fn = _build.entry(NAME, "pq_lookup_launch", 4, 5)
@@ -113,11 +138,9 @@ def pq_scan(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
         return pq_scan_ref(lut, codes)
     if not (lut.is_contiguous() and codes.is_contiguous()):
         raise ValueError("pq_scan wants contiguous tensors")
-    if codes.data_ptr() % 16:
-        raise ValueError("pq_scan wants 16-byte aligned codes (its kernel loads rows in 16 B)")
     b, n = lut.shape[0], codes.shape[0]
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid limit of 65535 queries")
+    if max(b, n) > _INT_MAX:
+        raise ValueError(f"B = {b} or N = {n} does not fit the kernel's int sizes")
     out = torch.empty((b, n), dtype=torch.float32, device=lut.device)
     if b == 0 or n == 0:  # nothing to compute: no launch, and none counted
         return out

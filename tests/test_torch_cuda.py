@@ -6,7 +6,8 @@ only PyTorch:
 
     python3 -m pytest tests/test_torch_cuda.py -q
 
-Bit for bit: ADC (all three entries, the brute-force scan included),
+Bit for bit: ADC (all three entries, the brute-force scan included, on
+each kernel's two routes and at their edges),
 the L2 tree, the fused round on all 11 fields (the merge's edges
 included), the top-k merge on its three routes and at the contract's edges, and
 whole searches card vs CPU — on the memory tier and off an index file on
@@ -56,6 +57,17 @@ def scan_inputs(seed, c, b=3, n=300, k=256):
     lut = (rng.random((b, c, k)) * 1000).astype(np.float32)
     codes = rng.integers(0, k, size=(n, c)).astype(np.int32)
     return lut, codes
+
+
+def id_inputs(seed, b, m, c, k, live, n_ids=90):
+    """A LUT per query, an (n_ids, C) code table and (B, M) ids into it: a
+    share ``live`` of them >= 0, the rest -1."""
+    rng = np.random.default_rng(seed)
+    lut = (rng.random((b, c, k)) * 1000).astype(np.float32)
+    table = rng.integers(0, k, size=(n_ids, c)).astype(np.int32)
+    ids = rng.integers(0, n_ids, size=(b, m)).astype(np.int32)
+    ids[rng.random((b, m)) >= live] = -1
+    return lut, table, ids
 
 
 def topk_inputs(seed, m, b=4):
@@ -321,6 +333,76 @@ def test_card_pq_scan_bit_identical(cuda):
     assert torch.equal(tpq.pq_scan(lut, codes), want)
     assert torch.equal(tpqm.adc_lookup(lut, codes), want)
     assert _build.LAUNCHES["pq_scan"] == before + 2
+
+
+# case -> (B, M, C, K, live ids, tensors 4 bytes off 16-byte alignment, route)
+ADC_CARD_CASES = {
+    "entry_m1": (256, 1, 32, 256, 1.0, False, "direct"),
+    "m_below_k": (33, 255, 32, 256, 0.8, False, "direct"),
+    "loop": (256, 768, 32, 256, 0.3, False, "staged"),
+    "tiles": (64, 1500, 32, 256, 0.5, False, "staged"),
+    "b1": (1, 768, 32, 256, 0.7, False, "staged"),
+    "all_dead": (64, 768, 32, 256, 0.0, False, "staged"),
+    "c6": (40, 300, 6, 16, 0.8, False, "staged"),
+    "c6_direct": (40, 7, 6, 16, 0.8, False, "direct"),
+    "c64": (20, 600, 64, 256, 0.8, False, "staged"),
+    "k512": (16, 2000, 8, 512, 0.8, False, "staged"),
+    "offset": (64, 768, 32, 256, 0.5, True, "staged"),
+    "offset_direct": (64, 1, 32, 256, 1.0, True, "direct"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ADC_CARD_CASES))
+def test_card_adc_routes_and_edges(cuda, case):
+    """Both ADC entries on both routes (the LUT read from global memory when
+    M < K, else staged in shared memory), one launch each, bit for bit: the
+    loop's entry (M = 1), several tiles a query, B = 1, every id -1, C = 6
+    (scalar code loads), C = 64 (two chunks), K = 512, and codes and LUT 4
+    bytes off 16-byte alignment (scalar loads, the LUT copied without TMA)."""
+    b, m, c, k, live, offset, route = ADC_CARD_CASES[case]
+    assert tpq.adc_route(m, k) == route
+    lut, table, ids = (torch.from_numpy(x).to(cuda)
+                       for x in id_inputs(60, b, m, c, k, live, n_ids=50_000))
+    codes = torch.from_numpy(adc_inputs(61, c, b=b, m=m, k=k)[1]).to(cuda)
+    want_ids, want_g = tpq.adc_ids_ref(lut, table, ids), tpq.pq_lookup_gathered_ref(lut, codes)
+    if offset:
+        lut, table, codes = at_offset(lut), at_offset(table), at_offset(codes)
+        assert all(t.data_ptr() % 16 == 4 for t in (lut, table, codes))
+    before = _build.LAUNCHES["pq_lookup"]
+    assert torch.equal(tpq.adc_ids(lut, table, ids), want_ids)
+    assert torch.equal(tpq.pq_lookup_gathered(lut, codes), want_g)
+    assert _build.LAUNCHES["pq_lookup"] == before + 2
+
+
+# case -> (B, N, C, K, tensors 4 bytes off 16-byte alignment, route)
+SCAN_CARD_CASES = {
+    "c6": (3, 5000, 6, 16, False, "packed"),
+    "k16": (5, 3000, 32, 16, False, "packed"),
+    "b1": (1, 10_007, 32, 256, False, "packed"),
+    "b65": (65, 30_001, 32, 256, False, "packed"),
+    "n_below_tile": (4, 300, 32, 256, False, "packed"),
+    "offset": (4, 10_007, 32, 256, True, "packed"),
+    "c6_offset": (3, 5000, 6, 16, True, "packed"),
+    "k512": (4, 3000, 8, 512, False, "wide"),
+    "c48": (3, 3000, 48, 256, False, "wide"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_CARD_CASES))
+def test_card_pq_scan_routes_and_edges(cuda, case):
+    """The scan on both routes (codes packed to bytes in registers when
+    K <= 256 and C <= 32, else read unpacked), bit for bit: C = 6, K = 16,
+    B = 1 and 65, N below one tile and not a multiple of it, tensors off
+    16-byte alignment."""
+    b, n, c, k, offset, route = SCAN_CARD_CASES[case]
+    assert tpq.scan_route(c, k) == route
+    lut, codes = (torch.from_numpy(x).to(cuda) for x in scan_inputs(62, c, b=b, n=n, k=k))
+    want = tpq.pq_scan_ref(lut, codes)
+    if offset:
+        lut, codes = at_offset(lut), at_offset(codes)
+    before = _build.LAUNCHES["pq_scan"]
+    assert torch.equal(tpq.pq_scan(lut, codes), want)
+    assert _build.LAUNCHES["pq_scan"] == before + 1
 
 
 @pytest.mark.parametrize("m", [5, 100, 768, 1000])

@@ -16,6 +16,9 @@ interpret mode and against ``repro.kernels.ref``:
     on the adversarial rounds of ``tests/test_fused_traversal.py``;
   * the brute-force ADC scan: bit for bit at C = 8, 16, within
     C * eps * value at C = 32 (the tolerance of the gathered ADC);
+  * both ADC entries and the scan at the shapes the CUDA kernels' routes
+    turn on: M = 1, every id -1, C = 6, K = 16, B = 1 and N not a multiple
+    of the Pallas kernel's block, bit for bit;
   * the top-k merge: exact distances and ids, duplicate-heavy rows
     included, at M in {5, 64, 100, 768} and k in {1, 10, M, 2M}; and at
     the contract's edges (+inf keys after the pads, ties at the pads'
@@ -53,8 +56,8 @@ from repro_torch.kernels import pq_lookup as tpq  # noqa: E402
 from repro_torch.kernels import topk_merge as ttk  # noqa: E402
 from test_torch_cuda import (  # noqa: E402
     CASES, FUSED_EDGE_CASES, L, N_IDS, W, B, K, C, PAD_ID, adc_inputs, assert_round_equal,
-    l2_inputs, round_edge_inputs, round_inputs, scan_inputs, topk_edge_inputs, topk_inputs,
-    topk_oracle,
+    id_inputs, l2_inputs, round_edge_inputs, round_inputs, scan_inputs, topk_edge_inputs,
+    topk_inputs, topk_oracle,
 )
 
 MODES = ("gate", "post", "early", "pre_naive", "unfiltered")
@@ -92,6 +95,33 @@ def test_adc_ids_matches_search_adc_ids():
     got = tpq.adc_ids(torch.from_numpy(lut), torch.from_numpy(table), torch.from_numpy(ids))
     np.testing.assert_array_equal(_np(got), _np(want))
     assert (_np(got)[ids < 0] == np.float32(3.4e38)).all()
+
+
+# the shapes the CUDA kernels' routes and load paths turn on, at C <= 16
+# (where XLA's CPU order is the port's): case -> (B, M, C, K, live ids)
+ADC_EDGES = {"m1": (4, 1, 8, 256, 1.0), "ids_all_dead": (4, 21, 8, 256, 0.0),
+             "c6_k16": (3, 37, 6, 16, 0.6), "k16": (3, 37, 8, 16, 0.6)}
+
+
+@pytest.mark.parametrize("case", sorted(ADC_EDGES))
+def test_adc_edges_bit_identical_to_pallas_and_ref(case):
+    """Both ADC entries at the edges: the gathered one against the Pallas
+    kernel (interpret mode) and the reference, the by-id one against the
+    search loop's ``_adc_ids``; ids < 0 give +INF."""
+    b, m, c, k, live = ADC_EDGES[case]
+    lut, codes = adc_inputs(10, c, b=b, m=m, k=k)
+    got = _np(tpq.pq_lookup_gathered(torch.from_numpy(lut), torch.from_numpy(codes)))
+    np.testing.assert_array_equal(got, _np(jpq.pq_lookup_gathered(
+        jnp.asarray(lut), jnp.asarray(codes), interpret=True)))
+    np.testing.assert_array_equal(got, _np(kref.pq_lookup_gathered_ref(jnp.asarray(lut),
+                                                                       jnp.asarray(codes))))
+    lut, table, ids = id_inputs(11, b, m, c, k, live)
+    want = jax.jit(lambda lu, co, i: jsearch._adc_ids(lu, co, i, False))(
+        jnp.asarray(lut), jnp.asarray(table), jnp.asarray(ids))
+    got = _np(tpq.adc_ids(torch.from_numpy(lut), torch.from_numpy(table), torch.from_numpy(ids)))
+    np.testing.assert_array_equal(got, _np(want))
+    assert (got[ids < 0] == np.float32(3.4e38)).all()
+    assert (ids < 0).all() if live == 0.0 else (ids >= 0).any()
 
 
 @pytest.mark.parametrize("d", [16, 24])
@@ -141,7 +171,7 @@ def test_entry_arities_match_the_sources():
         for sym, n_ptrs, n_ints, no_stream in re.findall(
                 r'entry\(\w+, "(\w+)", (\d+), (\d+)(, stream=False)?\)', py.read_text()):
             declared[sym] = (int(n_ptrs), int(n_ints), not no_stream)
-    assert set(declared) == set(sigs) and len(sigs) == 6
+    assert set(declared) == set(sigs) and len(sigs) == 8
     assert declared == sigs
 
 
@@ -163,6 +193,23 @@ def test_pq_scan_bit_identical_to_pallas_and_ref(c):
     lut, codes = scan_inputs(c, c)
     got = _np(tops.pq_scan(torch.from_numpy(lut), torch.from_numpy(codes)))
     np.testing.assert_array_equal(got, _np(jops.pq_scan(jnp.asarray(lut), jnp.asarray(codes))))
+    np.testing.assert_array_equal(got, _np(kref.pq_scan_ref(jnp.asarray(lut), jnp.asarray(codes))))
+
+
+# case -> (B, N, C, K); "n_ragged" and "c6_k16" leave the Pallas kernel's
+# 512-row block a ragged last tile
+SCAN_EDGES = {"c6_k16": (3, 700, 6, 16), "k16": (2, 513, 16, 16), "b1": (1, 1300, 8, 256),
+              "n_ragged": (3, 1300, 8, 256)}
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_EDGES))
+def test_pq_scan_edges_bit_identical_to_pallas_and_ref(case):
+    b, n, c, k = SCAN_EDGES[case]
+    lut, codes = scan_inputs(12, c, b=b, n=n, k=k)
+    got = _np(tops.pq_scan(torch.from_numpy(lut), torch.from_numpy(codes)))
+    assert got.shape == (b, n)
+    np.testing.assert_array_equal(got, _np(jpq.pq_scan(jnp.asarray(lut), jnp.asarray(codes),
+                                                       interpret=True)))
     np.testing.assert_array_equal(got, _np(kref.pq_scan_ref(jnp.asarray(lut), jnp.asarray(codes))))
 
 
