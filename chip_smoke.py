@@ -11,11 +11,12 @@ PyTorch version on the card.  Phases, each printing its own lines:
      CUDA versions; TF32 off for matrix products and convolutions;
   2. kernels against their plain versions at the paths' shapes (ADC both
      entries on both routes and at their edges, the scan on both routes,
-     L2 tree bit for bit and expanded within tolerance, the fused
-     round bit for bit on all 11 fields in all five modes, adversarial
-     rounds and the merge's edges included, the brute-force scan over
-     1,000,000 codes, and the top-k merge on both of its routes on random,
-     duplicate-heavy and edge keys, bit for bit);
+     L2 tree bit for bit and expanded within tolerance, the re-rank bit
+     for bit on its edge cases at D = 7, 16, 128, 960 and on both routes,
+     the fused round bit for bit on all 11 fields in all five modes,
+     adversarial rounds and the merge's edges included, the brute-force
+     scan over 1,000,000 codes, and the top-k merge on its three routes
+     on random, duplicate-heavy and edge keys, bit for bit);
   3. a 1M x 128 index (BigANN-like data, 10 uniform labels, a norm range
      attribute, a degree-64 graph of 48 exact neighbours + 16 random
      links, PQ with 32 chunks) written with the port's writer and loaded
@@ -23,7 +24,9 @@ PyTorch version on the card.  Phases, each printing its own lines:
      printed, and a tmpfs temporary directory is replaced by ``build/``;
   4. 1,024 queries in batches of 256 on the memory tier: gate unfused,
      gate fused and post, with recall@10 against filtered ground truth
-     computed on the card;
+     computed on the card, each round's stage B one re-rank launch; then
+     one batch with K + W past the re-rank kernel's limit (the standalone
+     L2 kernel and the plain merge), its first 10 results equal to K = 10;
   5. the same queries off the index file (``store_tier="disk"``), the page
      cache dropped before each: gate at depth 1, gate unfused and fused at
      depth 4 and post at depth 4, each equal to the memory tier bit for
@@ -31,7 +34,11 @@ PyTorch version on the card.  Phases, each printing its own lines:
   6. the brute-force PQ scan: every code scored by ``pq.adc_lookup``,
      filtered, top-10 by two levels of ``kernels.ops.topk_merge``;
   7. card vs CPU on a 20,000-vector index in all five modes;
-  8. one JSON line of per-kernel launches by path, times and bounds;
+  8. one JSON line of a round's stage B as the re-rank kernel and as the
+     parent design (the standalone L2 kernel and the plain merge):
+     launches, device and host microseconds, measured after phase 4's
+     warm-up batch, before any profiler session; then one of per-kernel
+     launches by path, times and bounds;
   9. the last line, ``{"ok": true, "device": {...}}``.
 
 Any mismatch raises and the script exits non-zero.  It needs a CUDA
@@ -44,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -57,8 +65,10 @@ import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 
 from repro_torch.core import EngineConfig, GateANNEngine, SearchConfig, recall_at_k  # noqa: E402
+from repro_torch.core import frontier as fr  # noqa: E402
 from repro_torch.core import pq as pqm  # noqa: E402
 from repro_torch.data import make_bigann_like, make_queries, uniform_labels  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -69,6 +79,8 @@ from repro_torch.kernels import pq_lookup as pqk  # noqa: E402
 from repro_torch.kernels import topk_merge as tkk  # noqa: E402
 from repro_torch.store.disk import DiskRecordStore  # noqa: E402
 from repro_torch.store.format import write_index  # noqa: E402
+# the re-rank's edge cases and its route's edge, as the card tests make them
+from test_torch_cuda import RERANK_CASES, first_split, rerank_inputs  # noqa: E402
 
 MODES = ("gate", "post", "early", "pre_naive", "unfiltered")
 # H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the tensor cores
@@ -146,6 +158,55 @@ def check_l2(dev, rng) -> None:
         require(bool((err <= tol).all()), f"l2 expanded D={d}: max err {float(err.max())}")
         log("kernels", f"L2 D={d}: tree bit-identical; expanded max |err| {float(err.max()):.6g} "
             f"within 2*D*eps*(|x|^2+|q|^2) (max bound {float(tol.max()):.6g})")
+
+
+def same_rerank(got, want, what: str) -> None:
+    same(got[0], want[0], f"{what} ids")
+    same(got[1].view(torch.int32), want[1].view(torch.int32), f"{what} dists' bits")
+    same(got[2], want[2], f"{what} n_degraded")
+
+
+def split_k(w: int, d: int) -> int:
+    """The least K that the re-rank's route (the library's) sends, with W
+    rows of D, to the standalone L2 kernel and the plain merge."""
+    return first_split(lambda k: l2k.rerank_route(k, w, d), 1, 1 << 20)
+
+
+def check_rerank(dev) -> None:
+    """The re-rank kernel bit for bit on its edge cases at the loop's B, W
+    and K and at D = 7, 16, 128 and 960: the tree with 16-byte-aligned
+    tensors (shuffles where D is a power of two) and 4 bytes off (the
+    shared-memory tree), the expanded form against the standalone kernel
+    and the plain merge; then both routes at the route's edge in K + W
+    (the last K it gives the kernel, and one more)."""
+    n = 0
+    for d in (7, 16, DIM, 960):
+        for case in RERANK_CASES:
+            args = [torch.from_numpy(a).to(dev) for a in rerank_inputs(n, case, d, b=BATCH)]
+            want = l2k.rerank_ref(*args)
+            same_rerank(l2k.rerank(*args), want, f"rerank {case} D={d}")
+            off = [at_offset(args[0]), at_offset(args[1])]
+            require(all(t.data_ptr() % 16 == 4 for t in off), "rerank: 16-byte aligned")
+            same_rerank(l2k.rerank(*off, *args[2:]), want, f"rerank {case} D={d} 4 bytes off")
+            split = l2k.rerank_composed(functools.partial(l2k.l2_dist, tree=False), *args)
+            same_rerank(l2k.rerank(*args, tree=False), split, f"rerank expanded {case} D={d}")
+            n += 3
+    routes, edges = set(), {w: split_k(w, DIM) for w in (8, 1000)}
+    for k, w in ((edges[8] - 1, 8), (edges[8], 8), (edges[1000] - 1, 1000), (edges[1000], 1000)):
+        args = [torch.from_numpy(a).to(dev) for a in rerank_inputs(n, "repeats", DIM, b=64, w=w, k=k)]
+        route = l2k.rerank_route(k, w, DIM)
+        before = dict(_build.LAUNCHES)
+        same_rerank(l2k.rerank(*args), l2k.rerank_ref(*args), f"rerank K={k} W={w} ({route})")
+        ran = {name for name in ("rerank", "l2_dist") if _build.LAUNCHES[name] > before.get(name, 0)}
+        require(ran == {{"fused": "rerank", "split": "l2_dist"}[route]}, f"rerank K={k} W={w}: {ran}")
+        routes.add(route)
+        n += 1
+    require(routes == set(l2k.ROUTES), f"rerank routes checked: {routes}")
+    log("kernels", f"re-rank bit-identical (ids, dists' bits, n_degraded): {n} rounds, cases "
+        f"{', '.join(RERANK_CASES)} at B={BATCH} W=8 K=10, D in (7, 16, {DIM}, 960), tree aligned "
+        "and 4 bytes off, expanded vs the standalone kernel + the plain merge; K+W="
+        f"{edges[8] + 7} on the kernel and one more on the standalone L2 kernel + the plain "
+        "merge (W=8 and W=1000)")
 
 
 def round_inputs(rng, dev, b, l, m, c, k, n_ids, *, dup_ids=False, all_filtered=False):
@@ -439,6 +500,7 @@ class Capture:
         # id sets, for the round-robin timing), recorded while phase says so
         self.phase, self.adc_rounds = None, []
         self.launches = {}  # path -> its kernel launches, each counted from 0
+        self.stage_b = None  # a round's stage B, re-rank against the parent design
         # the scan path: its third batch's scan, first-level merge (under
         # "topk_merge") and second-level merge (under "topk_merge_2")
         self.at = {"pq_scan": (3,), "topk_merge": (5, 6)}
@@ -462,7 +524,7 @@ class Capture:
 
     def __enter__(self):
         self.wrap(pqk, "adc_ids", "pq_lookup")
-        self.wrap(l2k, "l2_dist", "l2_dist")
+        self.wrap(l2k, "rerank", "rerank")
         self.wrap(ftk, "fused_traversal_round", "fused_traversal")
         self.wrap(pqk, "pq_scan", "pq_scan")
         self.wrap(kops, "topk_merge", "topk_merge")
@@ -474,12 +536,29 @@ class Capture:
         self.saved.clear()
 
 
+PLAIN_MERGES = [0]  # calls of the plain result-list merge, frontier.results_insert
+
+
+def watch_plain_merges() -> None:
+    """Count every call of ``frontier.results_insert``: the card's search
+    paths take it only where K + W is past the re-rank kernel's limits."""
+    real = fr.results_insert
+
+    def counted(*args, **kwargs):
+        PLAIN_MERGES[0] += 1
+        return real(*args, **kwargs)
+
+    fr.results_insert = counted
+
+
 def run_search(eng, queries, targets, cfg):
     """All queries in batches; returns ids, dists, stats, batch latencies
-    and the kernel launches of this run alone."""
+    and the kernel launches of this run alone, with its calls of the
+    plain merge under "plain_merges"."""
     ids, dists, stats, lat = [], [], [], []
     torch.cuda.synchronize()
     _build.reset_launches()
+    PLAIN_MERGES[0] = 0
     for s in range(0, queries.shape[0], BATCH):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -490,7 +569,7 @@ def run_search(eng, queries, targets, cfg):
         ids.append(out.ids)
         dists.append(out.dists)
         stats.append(out.stats)
-    launches = dict(_build.LAUNCHES)
+    launches = {**_build.LAUNCHES, "plain_merges": PLAIN_MERGES[0]}
     cat = {f: torch.cat([getattr(st, f) for st in stats]) for f in stats[0]._fields}
     return torch.cat(ids), torch.cat(dists), cat, np.asarray(lat), launches
 
@@ -523,13 +602,18 @@ def search_phase(eng, q, targets, gt, card: str, cap: Capture) -> dict:
                        search_config=cfg)
         cap.phase = None
     torch.cuda.synchronize()
+    # a round's stage B, re-rank kernel against the parent design, before
+    # any profiler session (CUPTI's callbacks slow later host calls)
+    cap.stage_b = stage_b_line(cap, card)
 
     # each path's launches are counted from 0 just before it and read just after
     runs = {name: run_search(eng, q, targets, cfg) for name, cfg in configs.items()}
     cap.launches.update({name: run[4] for name, run in runs.items()})
     for path in ("gate_unfused", "post"):
-        require_launches(cap, path, ("pq_lookup", "l2_dist"), ("fused_traversal",))
-    require_launches(cap, "gate_fused", ("pq_lookup", "l2_dist", "fused_traversal"))
+        require_launches(cap, path, ("pq_lookup", "rerank"),
+                         ("fused_traversal", "l2_dist", "plain_merges"))
+    require_launches(cap, "gate_fused", ("pq_lookup", "rerank", "fused_traversal"),
+                     ("l2_dist", "plain_merges"))
     n_batches = N_QUERIES // BATCH
     for path in configs:
         counts = cap.launches[path]
@@ -538,6 +622,24 @@ def search_phase(eng, q, targets, gt, card: str, cap: Capture) -> dict:
 
     same_run(runs["gate_fused"], runs["gate_unfused"], "gate fused vs unfused")
     log("search", "gate fused == gate unfused: ids, dists and all six SearchStats counters")
+    # the re-rank's other route: K + W past the kernel's limit takes the
+    # standalone L2 kernel and the plain merge; the first 10 results and
+    # the stats are the K = 10 run's (the result list is write-only state)
+    wide = dataclasses.replace(configs["gate_unfused"],
+                               result_k=split_k(SEARCH["beam_width"], DIM))
+    require(l2k.rerank_route(wide.result_k, wide.beam_width, DIM) == "split", "wide run: route")
+    run = run_search(eng, q[:BATCH], targets[:BATCH], wide)
+    cap.launches["gate_unfused_split"] = run[4]
+    require_launches(cap, "gate_unfused_split", ("pq_lookup", "l2_dist", "plain_merges"),
+                     ("rerank", "fused_traversal"))
+    base = runs["gate_unfused"]
+    same(run[0][:, :10], base[0][:BATCH], "split route ids")
+    same(run[1][:, :10], base[1][:BATCH], "split route dists")
+    for f in base[2]:
+        same(run[2][f], base[2][f][:BATCH], f"split route stats.{f}")
+    log("search", f"gate unfused at K={wide.result_k} (K+W one past the re-rank kernel's "
+        f"{wide.result_k + SEARCH['beam_width'] - 1}): launches {json.dumps(run[4])}; its first 10 results and stats "
+        "== the K=10 run's")
     summary = {}
     for name, (ids, dists, st, lat, _) in runs.items():
         require(bool(torch.isfinite(dists[ids >= 0]).all()), f"{name}: non-finite distances")
@@ -624,8 +726,8 @@ def ssd_phase(path: str, q, targets, mem_runs: dict, card: str, cap: Capture) ->
         if cfg.pipeline_depth > 1:
             require(io["overlapped_rounds"] > 0, f"{name}: no round overlapped another's read")
         fused = cfg.use_fused_kernel
-        require_launches(cap, name, ("pq_lookup", "l2_dist") + (("fused_traversal",) if fused else ()),
-                         () if fused else ("fused_traversal",))
+        require_launches(cap, name, ("pq_lookup", "rerank") + (("fused_traversal",) if fused else ()),
+                         ("l2_dist", "plain_merges") + (() if fused else ("fused_traversal",)))
         summary[name] = {
             "qps": N_QUERIES / float(lat.sum()), "p50_batch_ms": float(np.percentile(lat, 50) * 1e3),
             "p99_batch_ms": float(np.percentile(lat, 99) * 1e3),
@@ -764,7 +866,7 @@ def scan_phase(eng, q, targets, gt, card: str, cap: Capture) -> None:
             ids.append(got)
     cap.launches["pq_scan_topk"] = dict(_build.LAUNCHES)
     require_launches(cap, "pq_scan_topk", ("pq_scan", "topk_merge"),
-                     ("pq_lookup", "l2_dist", "fused_traversal"))
+                     ("pq_lookup", "l2_dist", "rerank", "fused_traversal"))
     ids = torch.cat(ids)
     # the same function from the plain versions on the card, for one batch
     b0 = slice(0, SCAN_BATCH)
@@ -795,14 +897,16 @@ def profile_batch(eng, q, targets, cfg, p50_ms: float, top: int = 8) -> dict:
         eng.search(q, filter_kind="label", filter_params=targets, search_config=cfg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    per_kernel = {}
+    per_kernel = {}  # kernels whose names share their first 60 characters are summed
     for e in prof.key_averages():
         us = e.self_device_time_total
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:  # kernels, not host ops
-            per_kernel[e.key[:60]] = (us / 1e3, e.count)
+            ms, n = per_kernel.get(e.key[:60], (0.0, 0))
+            per_kernel[e.key[:60]] = (ms + us / 1e3, n + e.count)
     busy_ms = sum(ms for ms, _ in per_kernel.values())
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms, "unprofiled_p50_ms": p50_ms,
+            "device_launches": sum(n for _, n in per_kernel.values()),
             "device_busy_share": busy_ms / p50_ms if busy_ms else None,
             "busy_share_of_profiled_wall": busy_ms / wall_ms if busy_ms else None,
             "top_kernels_ms_calls": {k: [round(ms, 4), n] for k, (ms, n) in ranked}}
@@ -860,6 +964,51 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def stage_b_line(cap: Capture, card: str, reps: int = 50, calls: int = 20) -> dict:
+    """The captured round's stage B as the re-rank kernel and as the parent
+    design (the standalone L2 kernel, then isinf, where and the plain
+    merge, as ``retire`` did before the re-rank): the host's time from the
+    call to its return (median of ``reps`` calls, each from an idle card,
+    the two in turns), the device launches and their summed kernel time a
+    call from ``torch.profiler`` over ``calls`` calls (kernels that start
+    with the profiler can be missed: over many calls that stays below one
+    launch a call), and the device time a call by CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args, kw = cap.args["rerank"]
+    fns = {"rerank": lambda: l2k.rerank(*args, **kw),
+           "parent_design": lambda: l2k.rerank_composed(
+               functools.partial(l2k.l2_dist, tree=True), *args)}
+    host = {name: [] for name in fns}
+    for _ in range(reps + 5):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host[name].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    out = {}
+    for name, fn in fns.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        seen = sum(e.count for e in dev)
+        out[name] = {"launches": round(seen / calls), "launches_seen": seen, "calls": calls,
+                     "device_us": sum(e.self_device_time_total for e in dev) / calls,
+                     "device_us_events": time_ms(fn) * 1e3,
+                     "host_us": float(np.median(host[name][5:]) * 1e6)}
+        c = out[name]
+        log("retire", f"one round's stage B, {name}: {c['launches']} device launches "
+            f"({seen} seen in {calls} calls), {c['device_us']:.2f} us of kernels "
+            f"({c['device_us_events']:.2f} us by CUDA events), {c['host_us']:.1f} us on the host "
+            f"(call to return, median) [B={args[1].shape[0]} W={args[1].shape[1]} "
+            f"K={args[4].shape[1]} D={args[1].shape[2]}] on {card}")
+    return out
+
+
 def by_path(cap: Capture, kernel: str) -> dict:
     """A kernel's launches in each main-path run, each counted from 0."""
     return {path: counts.get(kernel, 0) for path, counts in cap.launches.items()}
@@ -907,15 +1056,40 @@ def kernel_line(cap: Capture) -> list[dict]:
                                   "built beforehand (library_index_ms); ids < 0 not sent to +INF",
                      shape=f"B={b} M={m} C={c} K={k} valid_ids={n_valid}"))
     del idx, flat
-    # exact L2, tree form (the main path's use_kernel=False)
-    (q, vecs), kw = cap.args["l2_dist"]
+    # the re-rank, the main path's stage B (tree form, use_kernel=False), on
+    # the captured round
+    args, kw = cap.args["rerank"]
+    q, vecs, sel, rm, rids = args[:5]
     b, w, d = vecs.shape
-    err = float((l2k.l2_dist(q, vecs, **kw) - l2k.l2_tree_ref(q, vecs)).abs().max())
+    k = rids.shape[1]
+    got, want = l2k.rerank(*args, **kw), l2k.rerank_ref(*args, **kw)
+    same_rerank(got, want, "rerank on the captured round")
+    err = max(float((g.double() - h.double()).abs().max()) for g, h in zip(got, want))
+    # bytes: the queries with a row in the result mask and those rows, with
+    # their ids (no other query, row or id is needed), the whole mask, the
+    # result list in and out, n_degraded in and out; operations: sub, mul
+    # and add a scored element, the kill's and the rank's compares
+    n_rm, n_q, n = int(rm.sum()), int(rm.any(1).sum()), k + w
+    bnd = bound(n_q * d * 4 + n_rm * (d * 4 + 4) + b * w + 2 * b * k * 8 + 2 * b * 4,
+                3 * n_rm * d + b * (n * (n - 1) // 2 + n * n))
+    rows.append(dict(name="l2_dist.rerank", route="cuda", source="src/repro_torch/csrc/l2_dist.cu",
+                     replaces="src/repro/kernels/l2_dist.py:34", launches=total(cap, "rerank"),
+                     launches_by_path=by_path(cap, "rerank"), max_abs_err=err,
+                     ms=time_ms(lambda: l2k.rerank(*args, **kw)),
+                     plain_ms=time_ms(lambda: l2k.rerank_ref(*args, **kw)),
+                     bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                     library_note="no one PyTorch call computes it: distances, the +-inf check, "
+                                  "a dedup by id and a stable merge by distance",
+                     kernel_route=l2k.rerank_route(k, w, d),
+                     shape=f"B={b} W={w} K={k} D={d} scored_rows={n_rm} queries_scoring={n_q}"))
+    # exact L2 alone, tree form, on the same round's rows (the re-rank's
+    # other route; the standalone port of the TPU kernel)
+    err = float((l2k.l2_dist(q, vecs) - l2k.l2_tree_ref(q, vecs)).abs().max())
     bnd = bound((q.numel() + vecs.numel() + b * w) * 4, 3 * b * w * d)
     rows.append(dict(name="l2_dist.tree", route="cuda", source="src/repro_torch/csrc/l2_dist.cu",
                      replaces="src/repro/kernels/l2_dist.py:34", launches=total(cap, "l2_dist"),
                      launches_by_path=by_path(cap, "l2_dist"),
-                     max_abs_err=err, ms=time_ms(lambda: l2k.l2_dist(q, vecs, **kw)),
+                     max_abs_err=err, ms=time_ms(lambda: l2k.l2_dist(q, vecs)),
                      plain_ms=time_ms(lambda: l2k.l2_tree_ref(q, vecs)),
                      bound_ms=bnd[0], bound_by=bnd[1],
                      library_ms=time_ms(lambda: torch.cdist(q[:, None], vecs).square()),
@@ -1073,9 +1247,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log("kernels", f"built {', '.join(_build.SOURCES)} for sm_90a in {time.perf_counter() - t0:.1f} s")
+    watch_plain_merges()
     rng = np.random.default_rng(0)
     check_adc(dev, args.n, rng)
     check_l2(dev, rng)
+    check_rerank(dev)
     check_fused(dev, rng)
     check_scan(dev, args.n, rng)
     check_topk(dev, rng)
@@ -1139,6 +1315,7 @@ def main(argv=None) -> int:
             for shape, o in r["other_shapes"].items():
                 log("kernels", f"{r['name']} {o['kernel_route']} route: {o['ms'] * 1e3:.1f} us/launch "
                     f"(torch.topk {o['library_ms'] * 1e3:.1f} us) [{shape}] on {card}")
+    print(json.dumps({"retire": cap.stage_b, "card": card}), flush=True)
     log("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

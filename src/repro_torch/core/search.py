@@ -14,10 +14,13 @@ is under ``max_hops`` — one host sync per round in eager PyTorch.
 (``kernels.fused_traversal``) and gives the same ids, distances and
 stats as the unfused loop.
 
-On a CUDA device three kernels serve the loop (ADC, exact L2, fused
-round); on the CPU their plain versions do.  ``use_kernel`` keeps the
-reference's meaning for the exact distances: False = the fixed pairwise
-tree of ``_exact_dist``, True = the TPU kernel's expanded form.
+On a CUDA device three kernels serve the loop (ADC, the re-rank, fused
+round); on the CPU their plain versions do.  The re-rank
+(``kernels.l2_dist.rerank``) is all of a round's stage B — exact
+distances, the degraded-record check and the result-list merge — in one
+launch.  ``use_kernel`` keeps the reference's meaning for the exact
+distances: False = the fixed pairwise tree of the reference's
+``_exact_dist``, True = the TPU kernel's expanded form.
 
 **Pipelined search** (``pipeline_depth > 1`` with the store's
 asynchronous ``submit``/``drain`` pair, i.e. the disk tier): traversal
@@ -84,11 +87,6 @@ class SearchOutput(NamedTuple):
     stats: SearchStats
 
 
-def _exact_dist(queries: torch.Tensor, vecs: torch.Tensor, use_kernel: bool) -> torch.Tensor:
-    """(B, D) queries vs (B, W, D) fetched rows -> (B, W) squared L2."""
-    return l2k.l2_dist(queries, vecs, tree=not use_kernel)
-
-
 def _count(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(dim=1, dtype=torch.int32)
 
@@ -148,13 +146,10 @@ def filtered_search(
         """Score one round's fetched records into the result heap.  A +inf
         record (a degraded read) keeps its traversal role but is dropped
         from the results and counted; memory-tier records never are."""
-        exact_d = _exact_dist(queries, vecs, config.use_kernel)
-        deg = torch.isinf(vecs).any(dim=-1) & result_mask
-        ok = result_mask & ~deg
-        results = fr.results_insert(
-            results, torch.where(ok, sel_ids, fr.INVALID), torch.where(ok, exact_d, fr.INF)
-        )
-        return results, stats._replace(n_degraded=stats.n_degraded + _count(deg))
+        ids, dists, n_degraded = l2k.rerank(queries, vecs, sel_ids, result_mask, results.ids,
+                                            results.dists, stats.n_degraded,
+                                            tree=not config.use_kernel)
+        return fr.ResultList(ids, dists), stats._replace(n_degraded=n_degraded)
 
     def fresh_candidates(sel_ids, tunnel_mask, disk_nbrs):
         """This round's new frontier candidates: the fetched records'

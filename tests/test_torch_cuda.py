@@ -8,13 +8,18 @@ only PyTorch:
 
 Bit for bit: ADC (all three entries, the brute-force scan included, on
 each kernel's two routes and at their edges),
-the L2 tree, the fused round on all 11 fields (the merge's edges
+the L2 tree, the re-rank (ids, distances' bits and n_degraded on its edge
+cases, at D = 7, 16, 128, 960, aligned and not, tree and expanded, and at
+the edge of its route), the fused round on all 11 fields (the merge's edges
 included), the top-k merge on its three routes and at the contract's edges, and
 whole searches card vs CPU — on the memory tier and off an index file on
-the disk tier, synchronous and pipelined.  Within
-``expanded_tolerance``: the expanded L2 form.  The input generators are
-shared with ``tests/test_torch_kernels.py``.
+the disk tier, synchronous and pipelined, and under scripted degraded
+reads.  Within ``expanded_tolerance``: the expanded L2 form.  The input
+generators are shared with ``tests/test_torch_kernels.py`` and
+``tests/test_torch_rerank.py``.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -28,7 +33,7 @@ from repro_torch.kernels import fused_traversal as tft  # noqa: E402
 from repro_torch.kernels import l2_dist as tl2  # noqa: E402
 from repro_torch.kernels import pq_lookup as tpq  # noqa: E402
 from repro_torch.kernels import topk_merge as ttk  # noqa: E402
-from repro_torch.store import write_index  # noqa: E402
+from repro_torch.store import FaultPlan, write_index  # noqa: E402
 
 MODES = ("gate", "post", "early", "pre_naive", "unfiltered")
 B, L, W, C, K, N_IDS = 2, 8, 2, 4, 16, 50
@@ -194,6 +199,88 @@ def round_inputs(seed, m, *, dup_ids=False, all_filtered=False):
     npas = np.zeros((B, m), bool) if all_filtered else rng.random((B, m)) < 0.5
     lut = (rng.random((B, C, K)).astype(np.float32)) * 2
     return fid, fd, fexp, fpas, nid, nc, npas, lut, fid[:, 0].copy()
+
+
+RERANK_CASES = ("plain", "ties", "repeats", "all_masked", "degraded", "empty_results", "nan",
+                "nan_above_inf", "signed_zero")
+
+
+def rerank_inputs(seed, case, d, *, b=6, w=8, k=10):
+    """One round of stage B, as numpy arrays: queries (B, D), fetched rows
+    (B, W, D), sel_ids and result_mask (B, W), the result list (B, K)
+    sorted by distance with a dead tail of (-1, 3.4e38), n_degraded (B,).
+    ``ties`` integer rows and queries and integer result distances, so
+    distances repeat; ``repeats`` ids repeated within the rows and from
+    the result list; ``all_masked`` no row scored; ``degraded`` rows
+    holding +inf or -inf, inside and outside the mask; ``empty_results``
+    a result list of dead slots only; ``nan`` a NaN row and a NaN result
+    distance; ``nan_above_inf`` more NaNs than rows, so that the sort's
+    tail reaches the output (NaN rows, a result list whose last W slots
+    hold NaN under live ids, a row of values near 1e20 whose distance
+    overflows to +inf, and a +inf row); ``signed_zero`` rows equal to the
+    query (distance +0.0) and result distances of -0.0 and +0.0."""
+    rng = np.random.default_rng(seed)
+    n_ids = max(1000, 2 * (k + w))
+    q = (rng.random((b, d)) * 255).astype(np.float32)
+    vecs = (rng.random((b, w, d)) * 255).astype(np.float32)
+    sel = rng.integers(0, n_ids, (b, w)).astype(np.int32)
+    rm = rng.random((b, w)) < 0.7
+    rids = np.full((b, k), -1, np.int32)
+    rd = np.full((b, k), np.float32(3.4e38), np.float32)
+    live = rng.integers(max(k - 3, 0), k + 1, b)
+    scale = 255.0**2 / 6 * d  # a row's typical distance
+    for r in range(b):
+        rids[r, :live[r]] = rng.choice(n_ids, live[r], replace=False)
+        rd[r, :live[r]] = np.sort(rng.random(live[r]) * 2 * scale)
+    nd = rng.integers(0, 5, b).astype(np.int32)
+    if case == "ties":
+        q = rng.integers(0, 3, (b, d)).astype(np.float32)
+        vecs = rng.integers(0, 3, (b, w, d)).astype(np.float32)
+        for r in range(b):
+            rd[r, :live[r]] = np.sort(rng.integers(0, 2 * d, live[r])).astype(np.float32)
+    elif case == "repeats":
+        rm[:, :6] = True
+        sel[:, 1] = sel[:, 0]
+        sel[:, 3] = np.where(live > 0, rids[:, 0], sel[:, 3])
+        sel[:, 5] = sel[:, 2]
+        sel[:, 6] = sel[:, 4]
+        rm[:, 4] = False  # an earlier copy outside the mask is no copy
+    elif case == "all_masked":
+        rm[:] = False
+    elif case == "degraded":
+        vecs[:, 1, 3 % d] = np.inf
+        vecs[:, 4, d - 1] = -np.inf
+        vecs[:, 6, 0] = np.inf
+        rm[:, [1, 4]] = True
+        rm[:, 6] = False
+    elif case == "empty_results":
+        rids[:] = -1
+        rd[:] = np.float32(3.4e38)
+    elif case == "nan":
+        vecs[:, 2, d // 2] = np.nan
+        rm[:, 2] = True
+        rd[live > 0, live[live > 0] - 1] = np.nan
+    elif case == "nan_above_inf":
+        # W of the K + W candidates drop out: with more than W NaNs the
+        # first NaNs in slot order stay, after the +inf distance
+        head = max(k - w, 0)
+        for r in range(b):
+            rids[r] = rng.choice(n_ids, k, replace=False)
+        rd[:, :head] = np.sort(rng.random((b, head)) * 2 * scale, axis=1)
+        rd[:, head:] = np.nan
+        vecs[:, 2, d // 2] = np.nan
+        vecs[:, 5, 0] = np.nan
+        vecs[:, 7] = 1e20
+        vecs[:, 1, d - 1] = np.inf
+        rm[:, [1, 2, 5, 7]] = True
+    elif case == "signed_zero":
+        vecs[:, 0] = q
+        vecs[:, 3] = q
+        rm[:, [0, 3]] = True
+        rd[:, 0] = np.float32(-0.0)
+        rd[:, 1] = np.float32(0.0)
+        rids[:, :2] = [[n_ids, n_ids + 1]]
+    return q, vecs, sel, rm, rids, rd, nd
 
 
 def assert_round_equal(got, want, ctx):
@@ -464,10 +551,9 @@ def test_card_topk_merge_refuses_rows_beyond_shared_memory(cuda):
         ttk.topk_merge(d, i, 10)
 
 
-def test_card_disk_search_equals_cpu(cuda, tmp_path):
-    """An index file served off the disk tier on the card and on the CPU:
-    ids, distances and stats bit-identical, synchronous and pipelined,
-    and the card's reads reconcile with its n_ios."""
+def disk_index(tmp_path):
+    """A 3,000-vector index file (D = 32, degree 12, PQ C = 8): the
+    vectors and the path."""
     n, d = 3000, 32
     x = make_bigann_like(n, d, seed=4)
     xt = torch.from_numpy(x)
@@ -478,6 +564,14 @@ def test_card_disk_search_equals_cpu(cuda, tmp_path):
                 pq_books=rng.random((8, 256, 4)).astype(np.float32) * 255,
                 pq_codes=rng.integers(0, 256, size=(n, 8)).astype(np.int32), medoid=0,
                 config={"r_max": 8}, filters={"label": uniform_labels(n, 10, seed=0)})
+    return x, path
+
+
+def test_card_disk_search_equals_cpu(cuda, tmp_path):
+    """An index file served off the disk tier on the card and on the CPU:
+    ids, distances and stats bit-identical, synchronous and pipelined,
+    and the card's reads reconcile with its n_ios."""
+    x, path = disk_index(tmp_path)
     on_card = GateANNEngine.load(path, device=cuda, store_tier="disk")
     on_cpu = GateANNEngine.load(path, device="cpu", store_tier="disk")
     q = make_queries(x, 16, seed=1)
@@ -495,3 +589,108 @@ def test_card_disk_search_equals_cpu(cuda, tmp_path):
                 assert torch.equal(g.cpu(), w), (fused, depth)
             assert io["records_read"] == int(a.stats.n_ios.sum())
             assert io["abandoned_tokens"] == 0
+
+
+# ----------------------------------------------------------------- rerank
+def on_device(dev, arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def assert_rerank_equal(got, want, ctx):
+    """ids, distances' bits and n_degraded."""
+    assert torch.equal(got[0], want[0]), ctx
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32)), ctx
+    assert torch.equal(got[2], want[2]), ctx
+
+
+@pytest.mark.parametrize("d", [7, 16, 128, 960])
+@pytest.mark.parametrize("case", RERANK_CASES)
+def test_card_rerank_bit_identical(cuda, case, d):
+    """The re-rank kernel against its plain version on the card, bit for
+    bit: the tree with 16-byte-aligned tensors (shuffles where D is a
+    power of two) and 4 bytes off (the shared-memory tree), and the
+    expanded form against the standalone expanded kernel and the plain
+    merge."""
+    args = on_device(cuda, rerank_inputs(60 + d, case, d, b=64))
+    want = tl2.rerank_ref(*args)
+    before = _build.LAUNCHES["rerank"]
+    assert_rerank_equal(tl2.rerank(*args), want, (case, d, "tree"))
+    q, vecs = at_offset(args[0]), at_offset(args[1])
+    assert q.data_ptr() % 16 == 4 and vecs.data_ptr() % 16 == 4
+    assert_rerank_equal(tl2.rerank(q, vecs, *args[2:]), want, (case, d, "tree, 4 bytes off"))
+    split = tl2.rerank_composed(functools.partial(tl2.l2_dist, tree=False), *args)
+    assert_rerank_equal(tl2.rerank(*args, tree=False), split, (case, d, "expanded"))
+    assert _build.LAUNCHES["rerank"] == before + 3
+
+
+def first_split(route, lo, hi):
+    """The least x in (lo, hi] that ``route`` sends to "split", where
+    ``route(lo)`` is "fused" and ``route(hi)`` "split"."""
+    assert route(lo) == "fused" and route(hi) == "split"
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if route(mid) == "fused" else (lo, mid)
+    return hi
+
+
+def assert_route_taken(args, route, ctx):
+    """rerank equals its plain version bit for bit, by one launch of the
+    re-rank kernel (fused) or of the standalone l2_dist kernel (split)."""
+    before = dict(_build.LAUNCHES)
+    assert_rerank_equal(tl2.rerank(*args), tl2.rerank_ref(*args), ctx)
+    launched = {n: _build.LAUNCHES[n] - before.get(n, 0) for n in ("rerank", "l2_dist")}
+    assert launched == {"rerank": int(route == "fused"), "l2_dist": int(route == "split")}, ctx
+
+
+@pytest.mark.parametrize("past", [False, True])
+@pytest.mark.parametrize("w", [8, 1000])
+def test_card_rerank_route_edge(cuda, w, past):
+    """The last K + W that the library's route gives the re-rank kernel
+    takes it; one more takes the standalone l2_dist kernel and the plain
+    merge.  Both equal the plain version bit for bit."""
+    k = first_split(lambda k: tl2.rerank_route(k, w, 128), 1, 1 << 20) - (not past)
+    route = tl2.rerank_route(k, w, 128)
+    assert route == ("split" if past else "fused")
+    args = on_device(cuda, rerank_inputs(70 + w, "repeats", 128, b=16, w=w, k=k))
+    assert_route_taken(args, route, (k, w))
+
+
+def test_rerank_route(cuda):
+    """The route by (K + W, D), decided before any launch: the launcher
+    takes the last D whose shared-memory tree the route gives the kernel
+    (4 bytes off alignment, so the shared-memory form runs), and the next
+    D takes the split route; the expanded form needs no row buffers."""
+    assert tl2.rerank_route(10, 8, 128) == "fused"
+    edge = first_split(lambda d: tl2.rerank_route(10, 8, d), 128, 1 << 16)
+    assert tl2.rerank_route(10, 8, edge, tree=False) == "fused"
+    for d, route in ((edge - 1, "fused"), (edge, "split")):
+        args = on_device(cuda, rerank_inputs(80, "plain", d, b=4))
+        args[:2] = at_offset(args[0]), at_offset(args[1])
+        assert_route_taken(args, route, d)
+
+
+def test_card_degraded_search_equals_cpu(cuda, tmp_path):
+    """Scripted EIOs under io_on_error="degrade" on the disk tier: the card
+    (the re-rank kernel drops and counts the degraded rows) equals the
+    CPU in ids, distances, the six stats and the read counters, unfused
+    and fused."""
+    x, path = disk_index(tmp_path)
+    q = make_queries(x, 16, seed=1)
+    targets = np.arange(16, dtype=np.int32) % 10
+    schedule = tuple((i, "eio") for i in (1, 3, 6))
+    for fused in (False, True):
+        engines = [GateANNEngine.load(path, device=dev, store_tier="disk", io_on_error="degrade",
+                                      faults=FaultPlan(seed=7, schedule=schedule))
+                   for dev in (cuda, "cpu")]
+        cfg = SearchConfig(mode="gate", search_l=24, beam_width=4, use_fused_kernel=fused)
+        before = _build.LAUNCHES["rerank"]
+        a, b = (e.search(q, filter_kind="label", filter_params=targets, search_config=cfg)
+                for e in engines)
+        torch.cuda.synchronize()
+        for g, w in zip((a.ids, a.dists, *a.stats), (b.ids, b.dists, *b.stats)):
+            assert torch.equal(g.cpu(), w), fused
+        assert int(b.stats.n_degraded.sum()) > 0
+        assert _build.LAUNCHES["rerank"] > before
+        assert engines[0].io_counters() == engines[1].io_counters()
+        for e in engines:
+            e.measured_store().close()
