@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's paths — load a saved index, run gated filtered search
-on the memory tier and off the index file on the disk tier (synchronous
-and pipelined), and the brute-force PQ scan — at SIFT1M scale through the
-hand-written CUDA kernels, and holds every kernel against its plain
-PyTorch version on the card.  Phases, each printing its own lines:
+Drives the port's paths — build an index, save and load it, run gated
+filtered search on the memory tier and off the index file on the disk
+tier (synchronous and pipelined), with and without a hot-record cache,
+and the brute-force PQ scan — at SIFT1M scale through the hand-written
+CUDA kernels, and holds every kernel against its plain PyTorch version on
+the card.  Phases, each printing its own lines:
 
   1. device: the card's name and power limit (``nvidia-smi``), torch and
      CUDA versions; TF32 off for matrix products and convolutions;
@@ -17,10 +18,16 @@ PyTorch version on the card.  Phases, each printing its own lines:
      adversarial rounds and the merge's edges included, the brute-force
      scan over 1,000,000 codes, and the top-k merge on its three routes
      on random, duplicate-heavy and edge keys, bit for bit);
+  build. ``GateANNEngine.build`` on the card at N = 100,000 (R = 64,
+     L_build = 64, alpha = 1.2, two passes, 10 labels, the norm range),
+     its seconds by part (beam search, prune, reverse edges, PQ); saved,
+     loaded and searched bit-identically; gate recall@10 and I/O on that
+     Vamana graph beside the 48 + 16 graph of phase 3 over the same data;
   3. a 1M x 128 index (BigANN-like data, 10 uniform labels, a norm range
      attribute, a degree-64 graph of 48 exact neighbours + 16 random
-     links, PQ with 32 chunks) written with the port's writer and loaded
-     with ``GateANNEngine.load`` on the card; the file system it lies on is
+     links — not the port's Vamana graph, a cut the run prints — PQ with
+     32 chunks) written with the port's writer and loaded with
+     ``GateANNEngine.load`` on the card; the file system it lies on is
      printed, and a tmpfs temporary directory is replaced by ``build/``;
   4. 1,024 queries in batches of 256 on the memory tier: gate unfused,
      gate fused and post, with recall@10 against filtered ground truth
@@ -31,6 +38,12 @@ PyTorch version on the card.  Phases, each printing its own lines:
      cache dropped before each: gate at depth 1, gate unfused and fused at
      depth 4 and post at depth 4, each equal to the memory tier bit for
      bit, its reads reconciled with its n_ios;
+  cache. the cache tiers on the 1M index at budgets of 1% and 10% of the
+     records: memory tier (``visit_freq``) gate unfused and fused, disk
+     tier (``bfs`` through the lazy view) gate at depths 1 and 4, and an
+     adaptive cache over the 4 batches; each run equal to the uncached
+     one, n_ios + n_cache_hits equal to its n_ios, n_ios falling with the
+     budget, records_read == sum(n_ios);
   6. the brute-force PQ scan: every code scored by ``pq.adc_lookup``,
      filtered, top-10 by two levels of ``kernels.ops.topk_merge``;
   7. card vs CPU on a 20,000-vector index in all five modes;
@@ -69,6 +82,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 
 from repro_torch.core import EngineConfig, GateANNEngine, SearchConfig, recall_at_k  # noqa: E402
 from repro_torch.core import frontier as fr  # noqa: E402
+from repro_torch.core import graph as graphm  # noqa: E402
 from repro_torch.core import pq as pqm  # noqa: E402
 from repro_torch.data import make_bigann_like, make_queries, uniform_labels  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -77,6 +91,8 @@ from repro_torch.kernels import l2_dist as l2k  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import pq_lookup as pqk  # noqa: E402
 from repro_torch.kernels import topk_merge as tkk  # noqa: E402
+from repro_torch.store.adaptive import AdaptiveRecordCache  # noqa: E402
+from repro_torch.store.cache import record_nbytes  # noqa: E402
 from repro_torch.store.disk import DiskRecordStore  # noqa: E402
 from repro_torch.store.format import write_index  # noqa: E402
 # the re-rank's edge cases and its route's edge, as the card tests make them
@@ -91,6 +107,8 @@ DIM, DEGREE, EXACT_NBRS, PQ_CHUNKS, R_MAX = 128, 64, 48, 32, 32
 BATCH, N_QUERIES, N_LABELS = 256, 1024, 10
 SEARCH = dict(search_l=64, beam_width=8, result_k=10)
 DEPTH = 4  # the pipelined loop's depth on the disk tier
+BUILD_N, BUILD_L, ALPHA = 100_000, 64, 1.2  # the build phase: its N, L_build and alpha
+CACHE_FRACTIONS = (0.01, 0.10)  # the cache phase's budgets, as shares of the records
 SCAN_BATCH, SCAN_CHUNK = 64, 1000  # brute-force scan: queries a batch, top-k chunk width
 REPO = Path(__file__).resolve().parent
 
@@ -468,7 +486,7 @@ def build_index(path: str, n: int, dev, seed: int = 0) -> dict:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     # the build's geometry beside the served fields, as the reference saves it
-    cfg = {**dataclasses.asdict(EngineConfig(r_max=R_MAX)), "degree": DEGREE, "pq_chunks": PQ_CHUNKS}
+    cfg = dataclasses.asdict(EngineConfig(degree=DEGREE, pq_chunks=PQ_CHUNKS, r_max=R_MAX))
     write_index(path, vectors=x_np, neighbors=nbrs.cpu().numpy(),
                 pq_books=codec.books.cpu().numpy(), pq_codes=codes.cpu().numpy(),
                 medoid=medoid, config=cfg,
@@ -486,6 +504,83 @@ def ground_truth(x: torch.Tensor, labels: torch.Tensor, q: torch.Tensor, target:
     d = torch.where(labels[None] == target[:, None], d, float("inf"))
     dist, ids = torch.topk(d, k, dim=1, largest=False)
     return torch.where(torch.isfinite(dist), ids, -1).cpu().numpy()
+
+
+# ------------------------------------------------------------ the build phase
+def stats_summary(run) -> dict:
+    ids, dists, st, lat, _ = run
+    n_q = ids.shape[0]
+    return {**{f"mean_{f}": float(st[f].float().mean())
+               for f in ("n_ios", "n_tunnels", "n_hops", "n_cache_hits")},
+            "qps": n_q / float(lat.sum()), "p50_batch_ms": float(np.percentile(lat, 50) * 1e3),
+            "p99_batch_ms": float(np.percentile(lat, 99) * 1e3)}
+
+
+def build_phase(tmp: str, dev, card: str, cap, n: int) -> dict:
+    """``GateANNEngine.build`` on the card at N = ``n`` (BigANN-like, D = 128,
+    R = 64, L_build = 64, alpha = 1.2, two passes, 10 labels and the norm
+    range; PQ trained on every vector), timed by part; saved, loaded and
+    searched bit-identically to the built engine; then the gate search's
+    recall and I/O on this Vamana graph beside the smoke's 48 + 16 graph
+    over the same vectors and the same PQ."""
+    x_np = make_bigann_like(n, DIM, seed=5)
+    labels = uniform_labels(n, N_LABELS, seed=5)
+    norms = np.linalg.norm(x_np, axis=1).astype(np.float32)
+    cfg = EngineConfig(degree=DEGREE, build_l=BUILD_L, alpha=ALPHA, pq_chunks=PQ_CHUNKS,
+                       r_max=R_MAX)
+    parts = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = GateANNEngine.build(x_np, config=cfg, labels=labels, attributes=norms, timings=parts)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    graph_s = sum(parts[k] for k in ("beam_search", "prune", "reverse_edges"))
+    log("build", f"GateANNEngine.build on {eng.device}: N={n:,} D={DIM} R={DEGREE} "
+        f"L_build={BUILD_L} alpha={ALPHA} two passes, C={PQ_CHUNKS}: {build_s:.1f} s "
+        f"(graph {graph_s:.1f} s: beam search {parts['beam_search']:.1f} s, prune "
+        f"{parts['prune']:.1f} s, reverse edges {parts['reverse_edges']:.1f} s; PQ on all "
+        f"{n:,} vectors {parts['pq']:.1f} s) on {card}")
+    path = os.path.join(tmp, "build.gann")
+    t0 = time.perf_counter()
+    eng.save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = GateANNEngine.load(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x = torch.from_numpy(x_np).to(dev)
+    q = torch.from_numpy(make_queries(x_np, N_QUERIES, seed=1)).to(dev)
+    targets = torch.from_numpy(
+        np.random.default_rng(2).integers(0, N_LABELS, N_QUERIES).astype(np.int32)).to(dev)
+    gt = ground_truth(x, torch.from_numpy(labels).to(dev), q, targets)
+    search = SearchConfig(mode="gate", **SEARCH)
+    runs = {"build_vamana_gate": run_search(eng, q, targets, search)}
+    same_run(run_search(loaded, q, targets, search), runs["build_vamana_gate"],
+             "loaded index vs built engine")
+    log("build", f"saved ({os.path.getsize(path) / 2**20:.1f} MiB) in {save_s:.1f} s, loaded in "
+        f"{load_s:.1f} s; the loaded index searches bit-identically to the built engine "
+        "(ids, dists, six stats)")
+    knn = knn_graph(x, torch.Generator(device=dev).manual_seed(5))
+    knn_eng = GateANNEngine.from_arrays(
+        x_np, knn.cpu().numpy(), eng.codec.books.cpu().numpy(), eng.codes.cpu().numpy(),
+        graphm.find_medoid(x), {"label": labels, "range": norms}, cfg)
+    runs["build_knn_gate"] = run_search(knn_eng, q, targets, search)
+    summary = {"n": n, "build_s": build_s, "graph_s": graph_s, "parts_s": parts,
+               "save_s": save_s, "load_s": load_s}
+    for name, run in runs.items():
+        cap.launches[name] = run[4]
+        require_launches(cap, name, ("pq_lookup", "rerank"),
+                         ("fused_traversal", "l2_dist", "plain_merges"))
+        summary[name] = {"recall@10": recall_at_k(run[0], gt, 10), **stats_summary(run)}
+        r = summary[name]
+        log("build", f"{name} ({'Vamana' if 'vamana' in name else '48 exact + 16 random links'}"
+            f", N={n:,}): recall@10 {r['recall@10']:.4f}  mean n_ios {r['mean_n_ios']:.2f} "
+            f"n_tunnels {r['mean_n_tunnels']:.2f} n_hops {r['mean_n_hops']:.2f}  QPS "
+            f"{r['qps']:.1f} on {card}")
+    print(json.dumps({"build": summary, "card": card}), flush=True)
+    del eng, loaded, knn_eng, x
+    torch.cuda.empty_cache()
+    return summary
 
 
 # ---------------------------------------------------------------- phase 4
@@ -826,6 +921,122 @@ def read_probe(store, card: str) -> dict:
         + ", ".join(f"{k.replace('_us_per_record', '')} {v:.1f}" for k, v in out.items())
         + f" on {card}")
     return out
+
+
+# ------------------------------------------------------------ the cache phase
+def same_cached(run, base, what: str) -> None:
+    """A cached run against the uncached one: ids and dists bit-identical,
+    the traversal's stats equal, n_ios + n_cache_hits == the uncached n_ios
+    per query."""
+    same(run[0], base[0], f"{what} ids")
+    same(run[1], base[1], f"{what} dists")
+    for f in ("n_tunnels", "n_exact", "n_hops", "n_degraded"):
+        same(run[2][f], base[2][f], f"{what} stats.{f}")
+    same(run[2]["n_ios"] + run[2]["n_cache_hits"], base[2]["n_ios"],
+         f"{what} n_ios + n_cache_hits")
+
+
+def cache_phase(eng, path: str, q, targets, mem_runs: dict, card: str, cap) -> dict:
+    """The cache tiers on the 1M index.  Budgets of 0, 1% and 10% of the
+    records (of ``record_nbytes(128, 64)`` = 4,096 B each): the memory tier
+    with the ``visit_freq`` hot set, gate unfused and fused; the disk tier,
+    whose lazy vectors take the ``bfs`` hot set, gate at depths 1 and 4
+    from a dropped page cache; an adaptive cache on the memory tier over
+    the 4 batches with ``refresh_every`` = 1.  Every run equals the uncached
+    one bit for bit, n_ios + n_cache_hits equals its n_ios, n_ios does not
+    grow with the budget, and on disk records_read == sum(n_ios)."""
+    n = int(eng.codes.shape[0])
+    per = record_nbytes(DIM, DEGREE)
+    budgets = {f"{round(f * 100)}pct": int(n * f) * per for f in CACHE_FRACTIONS}
+    summary = {"record_bytes": per,
+               "budgets": {k: {"records": b // per, "bytes": b} for k, b in budgets.items()}}
+    mem_cfgs = {"gate_unfused": SearchConfig(mode="gate", **SEARCH),
+                "gate_fused": SearchConfig(mode="gate", use_fused_kernel=True, **SEARCH)}
+    disk_cfgs = {f"disk_gate_d{d}": SearchConfig(mode="gate", pipeline_depth=d, **SEARCH)
+                 for d in (1, DEPTH)}
+    ios = {name: [int(mem_runs[base][2]["n_ios"].sum())] for name, base in
+           [*((k, k) for k in mem_cfgs), *((k, "gate_unfused") for k in disk_cfgs)]}
+
+    def record(name, run, cfg, sel_s, store, extra=None):
+        cap.launches[name] = run[4]
+        fused = cfg.use_fused_kernel
+        require_launches(cap, name, ("pq_lookup", "rerank") + (("fused_traversal",) if fused else ()),
+                         ("l2_dist", "plain_merges") + (() if fused else ("fused_traversal",)))
+        r = summary[name] = {"hot_set_s": sel_s, "cached_records": store.n_cached,
+                             "device_bytes": store.device_bytes(), **stats_summary(run),
+                             **(extra or {})}
+        log("cache", f"{name}: hot set {r['hot_set_s']:.2f} s, {r['cached_records']:,} records, "
+            f"{r['device_bytes'] / 2**20:.1f} MiB on the device; QPS {r['qps']:.1f}  batch p50 "
+            f"{r['p50_batch_ms']:.2f} ms p99 {r['p99_batch_ms']:.2f} ms  mean n_ios "
+            f"{r['mean_n_ios']:.2f} n_cache_hits {r['mean_n_cache_hits']:.2f}  launches "
+            f"{json.dumps(run[4])} on {card}")
+
+    for bname, budget in budgets.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cached = eng.with_cache(budget)  # visit_freq over the device vectors
+        torch.cuda.synchronize()
+        sel_s = time.perf_counter() - t0
+        for cname, cfg in mem_cfgs.items():
+            name = f"cache_mem_{cname}_{bname}"
+            run = run_search(cached, q, targets, cfg)
+            same_cached(run, mem_runs[cname], name)
+            ios[cname].append(int(run[2]["n_ios"].sum()))
+            record(name, run, cfg, sel_s, cached.record_store, {"policy": "visit_freq"})
+        del cached
+    deng = GateANNEngine.load(path, store_tier="disk", max_gap_sectors=0)
+    dstore = deng.measured_store()
+    for bname, budget in budgets.items():
+        t0 = time.perf_counter()
+        cached = deng.with_cache(budget)  # the lazy view: the BFS order, rows read off the file
+        torch.cuda.synchronize()
+        sel_s = time.perf_counter() - t0
+        for cname, cfg in disk_cfgs.items():
+            name = f"cache_{cname}_{bname}"
+            dstore.drop_page_cache()
+            dstore.reset_io_counters()
+            run = run_search(cached, q, targets, cfg)
+            torch.cuda.synchronize()
+            io = dstore.io_counters()
+            same_cached(run, mem_runs["gate_unfused"], name)
+            n_ios = int(run[2]["n_ios"].sum())
+            require(io["records_read"] == n_ios,
+                    f"{name}: records_read {io['records_read']} != sum(n_ios) {n_ios}")
+            require(io["abandoned_tokens"] == 0, f"{name}: abandoned tokens")
+            ios[cname].append(n_ios)
+            record(name, run, cfg, sel_s, cached.record_store,
+                   {"policy": "bfs", "records_read": io["records_read"],
+                    "page_cache_dropped": io["warm_errors"] == 0})
+        del cached
+    dstore.close()
+    for name, seq in ios.items():
+        require(all(a >= b for a, b in zip(seq, seq[1:])),
+                f"{name}: n_ios grew with the budget: {seq}")
+    summary["sum_n_ios_by_budget"] = {name: dict(zip(["0pct", *budgets], seq))
+                                      for name, seq in ios.items()}
+    log("cache", "every cached run == its uncached run (ids, dists, traversal stats); "
+        "n_ios + n_cache_hits == the uncached n_ios; sum(n_ios) at budgets 0/1%/10%: "
+        + json.dumps(summary["sum_n_ios_by_budget"]))
+    # the adaptive cache: refreshed before each batch after the first
+    budget = budgets[f"{round(CACHE_FRACTIONS[-1] * 100)}pct"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adaptive = eng.with_cache(budget, policy="adaptive", refresh_every=1)
+    torch.cuda.synchronize()
+    sel_s = time.perf_counter() - t0
+    run = run_search(adaptive, q, targets, mem_cfgs["gate_unfused"])
+    same_cached(run, mem_runs["gate_unfused"], "adaptive")
+    store = adaptive.record_store
+    require(isinstance(store, AdaptiveRecordCache) and store.n_refreshes == N_QUERIES // BATCH - 1,
+            f"adaptive: {store.n_refreshes} refreshes")
+    hits = run[2]["n_cache_hits"].reshape(-1, BATCH).sum(1).tolist()
+    record("cache_adaptive_gate_unfused", run, mem_cfgs["gate_unfused"], sel_s, store,
+           {"policy": "adaptive", "refreshes": store.n_refreshes,
+            "partitions": len(store.partitions), "hits_by_batch": hits})
+    print(json.dumps({"cache": summary, "card": card}), flush=True)
+    del adaptive
+    torch.cuda.empty_cache()
+    return summary
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1258,6 +1469,14 @@ def main(argv=None) -> int:
 
     cap = Capture()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=index_dir()) as tmp:
+        built = build_phase(tmp, dev, card, cap, min(BUILD_N, args.n))
+        # phase 3 keeps the 48 + 16 graph: a Vamana graph at 1M builds within
+        # the run's time, but its gate recall@10 at SEARCH falls below this
+        # smoke's garbage detector (PERF.md, Findings)
+        log("index", f"CUT: the {args.n:,} index keeps 48 exact + 16 random links, not the "
+            f"port's Vamana graph (the build phase's {built['graph_s']:.1f} s at "
+            f"N={built['n']:,} scale linearly to {built['graph_s'] * args.n / built['n']:.0f} s "
+            "at this N; see PERF.md for why phase 4 does not search it)")
         if args.n != 1_000_000:
             log("index", f"N cut from 1,000,000 to {args.n:,} (--n)")
         path = os.path.join(tmp, "sift1m_like.gann")
@@ -1278,6 +1497,7 @@ def main(argv=None) -> int:
         del index, x
         mem_runs = search_phase(eng, q, targets, gt, card, cap)
         ssd_phase(path, q, targets, mem_runs, card, cap)
+        cache_phase(eng, path, q, targets, mem_runs, card, cap)
         scan_phase(eng, q, targets, gt, card, cap)
         del eng, mem_runs
         torch.cuda.empty_cache()

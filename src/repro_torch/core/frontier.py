@@ -22,7 +22,7 @@ class Frontier(NamedTuple):
     expanded: torch.Tensor  # (B, L) bool — dispatched or tunneled already
 
 
-def make_frontier(batch: int, size: int, device: torch.device | str = "cpu") -> Frontier:
+def make_frontier(batch: int, size: int, device: torch.device | str) -> Frontier:
     return Frontier(
         ids=torch.full((batch, size), INVALID, dtype=torch.int32, device=device),
         dists=torch.full((batch, size), INF, dtype=torch.float32, device=device),
@@ -99,7 +99,7 @@ class ResultList(NamedTuple):
     dists: torch.Tensor  # (B, K)
 
 
-def make_results(batch: int, k: int, device: torch.device | str = "cpu") -> ResultList:
+def make_results(batch: int, k: int, device: torch.device | str) -> ResultList:
     return ResultList(
         ids=torch.full((batch, k), INVALID, dtype=torch.int32, device=device),
         dists=torch.full((batch, k), INF, dtype=torch.float32, device=device),

@@ -36,6 +36,16 @@ in the reference's order: unfused — stage A, submit, expand, ring write,
 drain, retire; fused — account, submit, new candidates, kernel call,
 ring write, drain, retire; then ``depth - 1`` flush rounds.  Without the
 pair (memory and host tiers), any depth runs the synchronous loop.
+
+**Cache tier**: when the record store carries a hot-node cache
+(``store/cache.py``), ``cached_mask`` splits each round's fetches into
+cache hits (counted as ``n_cache_hits``) and slow-tier reads (``n_ios``);
+the store itself masks the hits to -1 before its slow tier sees them.
+``visit_counts`` (an (N,) float32 tensor) gains each round's fetch-path
+dispatches — the adaptive cache's online counters — and comes back on
+``SearchOutput``.  Both happen in ``account``, the one place every path
+(unfused, fused, synchronous, pipelined) counts a round.  Results are
+bit-identical with or without a cache.
 """
 from __future__ import annotations
 
@@ -77,7 +87,7 @@ class SearchStats(NamedTuple):
     n_tunnels: torch.Tensor  # (B,) nodes traversed purely in memory
     n_exact: torch.Tensor  # (B,) exact distance computations
     n_hops: torch.Tensor  # (B,) dispatch rounds
-    n_cache_hits: torch.Tensor  # (B,) fetches served by a cache tier (none yet: 0)
+    n_cache_hits: torch.Tensor  # (B,) record fetches served by the cache tier
     n_degraded: torch.Tensor  # (B,) result slots whose record came back degraded (+inf)
 
 
@@ -85,6 +95,9 @@ class SearchOutput(NamedTuple):
     ids: torch.Tensor  # (B, K) result ids (filter-passing, exact-ranked)
     dists: torch.Tensor  # (B, K)
     stats: SearchStats
+    # (N,) per-node fetch-path visit counts on top of the caller's
+    # ``visit_counts``; None when counting is off
+    visit_counts: torch.Tensor | None = None
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
@@ -101,6 +114,8 @@ def filtered_search(
     entry: torch.Tensor,  # () or (B,) int32 medoid
     queries: torch.Tensor,  # (B, D) full-precision queries
     config: SearchConfig,
+    cached_mask=None,  # (B, W) ids -> (B, W) bool cache-hit mask
+    visit_counts: torch.Tensor | None = None,  # (N,) f32 running fetch counters
     submit=None,  # asynchronous pair: (B, W) ids -> (token, nbrs (B, W, R))
     drain=None,  # (token, ids, live) -> vecs (B, W, D)
 ) -> SearchOutput:
@@ -133,14 +148,25 @@ def filtered_search(
     zeros = torch.zeros((b,), dtype=torch.int32, device=dev)
     stats = SearchStats(zeros, zeros, zeros, zeros, zeros, zeros)
 
-    def account(stats, fetch_mask, tunnel_mask, exact_mask):
-        # no cache tier yet: every fetch is a slow-tier read
-        return stats._replace(
-            n_ios=stats.n_ios + _count(fetch_mask),
+    # the caller's counters, accumulated on a copy
+    vc = None if visit_counts is None else visit_counts.to(dev, torch.float32, copy=True)
+
+    def account(stats, sel_ids, fetch_mask, tunnel_mask, exact_mask):
+        """A round's stats: its fetches split into cache hits and slow-tier
+        reads, and the fetch-path dispatches added to the visit counters."""
+        if vc is not None:
+            vc.index_add_(0, sel_ids.clamp(min=0).reshape(-1).long(),
+                          fetch_mask.reshape(-1).to(torch.float32))
+        stats = stats._replace(
             n_tunnels=stats.n_tunnels + _count(tunnel_mask),
             n_exact=stats.n_exact + _count(exact_mask),
             n_hops=stats.n_hops + 1,
         )
+        if cached_mask is None:  # no cache tier: every fetch is a slow-tier read
+            return stats._replace(n_ios=stats.n_ios + _count(fetch_mask))
+        hit_mask = cached_mask(sel_ids) & fetch_mask
+        return stats._replace(n_ios=stats.n_ios + _count(fetch_mask & ~hit_mask),
+                              n_cache_hits=stats.n_cache_hits + _count(hit_mask))
 
     def retire(results, stats, sel_ids, result_mask, vecs):
         """Score one round's fetched records into the result heap.  A +inf
@@ -173,7 +199,7 @@ def filtered_search(
         fetch_mask, tunnel_mask, result_mask, exact_mask = ftk.mode_masks(
             mode, sel_ids, valid, passes, entry[:, None]
         )
-        stats = account(stats, fetch_mask, tunnel_mask, exact_mask)
+        stats = account(stats, sel_ids, fetch_mask, tunnel_mask, exact_mask)
         fetch_ids = torch.where(fetch_mask, sel_ids, fr.INVALID)
         return frontier, stats, sel_ids, fetch_ids, tunnel_mask, result_mask
 
@@ -205,7 +231,7 @@ def filtered_search(
         if pipelined:  # flush: retire the rounds still in flight, oldest first
             for j in range(depth - 1):
                 results, stats = retire_round(r - (depth - 1) + j, results, stats)
-        return SearchOutput(ids=results.ids, dists=results.dists, stats=stats)
+        return SearchOutput(ids=results.ids, dists=results.dists, stats=stats, visit_counts=vc)
 
     use_fused = config.use_fused_kernel and ftk.fused_supported(
         l=L, width=W, m=W * (store.degree + r_max), c=codes.shape[1], k=lut.shape[2], device=dev
@@ -240,7 +266,7 @@ def filtered_search(
     rnd = fused_call(frontier.ids, frontier.dists, frontier.expanded,
                      filter_check(frontier.ids), empty, empty.bool())
     while bool(rnd.valid.any() & (stats.n_hops < config.max_hops).all()):
-        stats = account(stats, rnd.fetch_mask, rnd.tunnel_mask, rnd.exact_mask)
+        stats = account(stats, rnd.sel_ids, rnd.fetch_mask, rnd.tunnel_mask, rnd.exact_mask)
         if not pipelined:
             vecs, disk_nbrs = store.fetch(rnd.fetch_ids)
             results, stats = retire(results, stats, rnd.sel_ids, rnd.result_mask, vecs)

@@ -1,3 +1,12 @@
+from repro_torch.store.adaptive import ADAPTIVE_POLICY, AdaptiveRecordCache, filter_bucket
+from repro_torch.store.cache import (
+    CACHE_POLICIES,
+    CachedRecordStore,
+    bfs_hot_set,
+    record_nbytes,
+    select_hot_set,
+    visit_freq_hot_set,
+)
 from repro_torch.store.disk import DiskRecordStore, ReadDeadlineError, RetryPolicy, is_transient
 from repro_torch.store.faults import FaultInjector, FaultPlan
 from repro_torch.store.format import (
@@ -13,9 +22,18 @@ from repro_torch.store.format import (
     record_sector_bytes,
     write_index,
 )
-from repro_torch.store.vector_store import HostOffloadRecordStore, InMemoryRecordStore
+from repro_torch.store.vector_store import HostOffloadRecordStore, InMemoryRecordStore, is_lazy_host
 
 __all__ = [
+    "ADAPTIVE_POLICY",
+    "AdaptiveRecordCache",
+    "filter_bucket",
+    "CACHE_POLICIES",
+    "CachedRecordStore",
+    "bfs_hot_set",
+    "record_nbytes",
+    "select_hot_set",
+    "visit_freq_hot_set",
     "DiskRecordStore",
     "ReadDeadlineError",
     "RetryPolicy",
@@ -35,4 +53,5 @@ __all__ = [
     "write_index",
     "HostOffloadRecordStore",
     "InMemoryRecordStore",
+    "is_lazy_host",
 ]

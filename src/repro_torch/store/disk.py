@@ -79,6 +79,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.store.format import (
     PAGE_BYTES,
     SEC_NEIGHBORS,
@@ -319,7 +320,7 @@ class DiskRecordStore:
         self,
         path: str,
         *,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         io_mode: str = "auto",
         max_gap_sectors: int | None = None,
         reader_threads: int = 4,
@@ -336,7 +337,7 @@ class DiskRecordStore:
         self.degree = header.degree
         self.sector_bytes = header.sector_bytes
         self.pages_per_record = header.sector_bytes // PAGE_BYTES
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if io_mode == "auto":
             io_mode = default_io_mode()
         if io_mode not in IO_MODES:
@@ -400,12 +401,15 @@ class DiskRecordStore:
         self._inflight = 0  # submitted-but-undrained tokens, survives resets; guarded by _lock
         self._warm_stop = threading.Event()
         self._warm_thread: threading.Thread | None = None
+        self._closed = False  # guarded by _lock
 
     @classmethod
     def open(cls, path: str, **kwargs) -> "DiskRecordStore":
         return cls(path, **kwargs)
 
     def close(self) -> None:
+        with self._lock:
+            self._closed = True
         self._warm_stop.set()  # signal only: never blocks on the warmer
         self.abandon_pending()  # tokens nobody will drain are leaks: count them
         with self._lock:
@@ -775,7 +779,11 @@ class DiskRecordStore:
         page cache (``warmed_bytes``).  ``background=True`` runs on a
         daemon thread and returns it; ``close()`` signals it to stop but
         never joins it.  A re-entrant call stops and joins a running
-        warmer first, so two warms never double-count."""
+        warmer first, so two warms never double-count.  A closed store
+        refuses to warm."""
+        with self._lock:
+            if self._closed:
+                raise ValueError(f"warm() on a closed store ({self.path})")
         prev = self._warm_thread
         if prev is not None and prev.is_alive():
             self._warm_stop.set()
@@ -935,7 +943,13 @@ class DiskRecordStore:
     def n_shards(self) -> int:
         return len(self._segments) if self.header.shards else 1
 
-    # -- host-side view (ground truth) ------------------------------------
+    # -- host-side views (ground truth, cache wiring) ----------------------
+    @property
+    def neighbors(self) -> np.ndarray:
+        """Full adjacency (N, R) int32 as a host view of the index's sidecar
+        section (no device copy): what cache wiring gathers hot rows from."""
+        return self._adjacency_host()
+
     @property
     def vectors(self):
         """Full-precision vectors as a LAZY host view of the record file:

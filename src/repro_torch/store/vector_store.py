@@ -25,6 +25,23 @@ from repro_torch.store.format import record_nbytes
 from repro_torch.store.staging import PinnedStaging
 
 
+def is_lazy_host(a) -> bool:
+    """True for lazy host-resident corpus views (the disk tier's
+    ``vectors``) that must never be shipped to the device wholesale —
+    cache wiring gathers the hot rows on the host instead.  Covers
+    memmap-backed arrays and any object flagging ``__lazy_host__``
+    (the multi-segment ``LazySegmentVectors``)."""
+    if getattr(a, "__lazy_host__", False):
+        return True
+    while isinstance(a, np.ndarray):
+        if isinstance(a, np.memmap):
+            return True
+        if a.base is None:
+            return False
+        a = a.base
+    return False
+
+
 def _gather_rows(vectors: torch.Tensor, neighbors: torch.Tensor, ids: torch.Tensor):
     """(B, W) ids -> (vecs (B, W, D), nbrs (B, W, R)) on the records'
     device; ids < 0 give zero vectors and -1 neighbour rows."""

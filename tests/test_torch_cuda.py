@@ -694,3 +694,70 @@ def test_card_degraded_search_equals_cpu(cuda, tmp_path):
         assert engines[0].io_counters() == engines[1].io_counters()
         for e in engines:
             e.measured_store().close()
+
+
+# ------------------------------------------------------- cache tiers and build
+def test_card_cached_search_equals_uncached(cuda, tmp_path):
+    """A cached gate search on the card, memory and disk tiers, depths 1 and
+    4, static and adaptive: the uncached ids, distances, tunnels and hops,
+    n_ios + n_cache_hits equal to the uncached n_ios, and every stat equal to
+    the CPU's cached run; on disk records_read == sum(n_ios)."""
+    from repro_torch.store import CachedRecordStore
+
+    x, path = disk_index(tmp_path)
+    q = make_queries(x, 16, seed=1)
+    targets = np.arange(16, dtype=np.int32) % 10
+    budget = 64 * 4096
+    for tier in ("memory", "disk"):
+        base = GateANNEngine.load(path, device=cuda, store_tier=tier)
+        cpu = GateANNEngine.load(path, device="cpu", store_tier=tier)
+        for policy in ("visit_freq", "adaptive"):
+            cached = base.with_cache(budget, policy=policy, refresh_every=1)
+            on_cpu = cpu.with_cache(budget, policy=policy, refresh_every=1)
+            for depth in (1, 4):
+                for fused in (False, True):
+                    cfg = SearchConfig(mode="gate", search_l=24, beam_width=4,
+                                       use_fused_kernel=fused, pipeline_depth=depth)
+                    kw = dict(filter_kind="label", filter_params=targets, search_config=cfg)
+                    want = base.search(q, **kw)
+                    store = cached.measured_store()
+                    if store is not None:
+                        store.reset_io_counters()
+                    got = cached.search(q, **kw)
+                    torch.cuda.synchronize()
+                    ctx = (tier, policy, depth, fused)
+                    for f in ("ids", "dists"):
+                        assert torch.equal(getattr(got, f), getattr(want, f)), ctx
+                    for f in ("n_tunnels", "n_exact", "n_hops", "n_degraded"):
+                        assert torch.equal(getattr(got.stats, f), getattr(want.stats, f)), ctx
+                    assert torch.equal(got.stats.n_ios + got.stats.n_cache_hits,
+                                       want.stats.n_ios), ctx
+                    if store is not None:
+                        assert store.io_counters()["records_read"] == int(got.stats.n_ios.sum())
+                    ref = on_cpu.search(q, **kw)
+                    for g, w in zip((got.ids, got.dists, *got.stats),
+                                    (ref.ids, ref.dists, *ref.stats)):
+                        assert torch.equal(g.cpu(), w), ctx
+            assert int(got.stats.n_cache_hits.sum()) > 0
+        hot = cached.with_cache(budget, policy="bfs").record_store
+        assert isinstance(hot, CachedRecordStore) and hot.cache_vectors.device.type == "cuda"
+
+
+def test_card_build_vamana_equals_cpu(cuda):
+    """The Vamana build on the card equals the CPU port's on integer-valued
+    vectors (exact distances), and so does a beam search over it."""
+    from repro_torch.core import graph as tg
+
+    x = np.random.default_rng(0).integers(-8, 9, (3000, 16)).astype(np.float32)
+    on_card = tg.build_vamana(torch.from_numpy(x).to(cuda), degree=12, build_l=24,
+                              batch_size=256, seed=0)
+    on_cpu = tg.build_vamana(x, degree=12, build_l=24, batch_size=256, seed=0, device="cpu")
+    assert on_card.medoid == on_cpu.medoid
+    assert torch.equal(on_card.neighbors.cpu(), on_cpu.neighbors)
+    q = x[:64] + np.random.default_rng(1).integers(-2, 3, (64, 16)).astype(np.float32)
+    a = tg.beam_search_batch(on_card.neighbors, torch.from_numpy(x).to(cuda), on_card.medoid,
+                             torch.from_numpy(q).to(cuda), search_l=24, beam_width=4)
+    b = tg.beam_search_batch(on_cpu.neighbors, torch.from_numpy(x), on_cpu.medoid,
+                             torch.from_numpy(q), search_l=24, beam_width=4)
+    for g, w in zip(a, b):
+        assert torch.equal(g.cpu(), w)

@@ -24,6 +24,7 @@ Everything runs on the CPU (``device="cpu"``); ``tests/test_torch_cuda.py``
 holds the disk tier on the card to the CPU.
 """
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -116,7 +117,7 @@ def test_merge_ranges_matches_reference():
 @pytest.mark.parametrize("shards", [1, 2])
 def test_fetch_and_counters_match_reference(saved, shards, io_mode, max_gap, beam):
     j = JDisk.open(saved[shards], io_mode=io_mode, max_gap_sectors=max_gap)
-    t = DiskRecordStore.open(saved[shards], io_mode=io_mode, max_gap_sectors=max_gap)
+    t = DiskRecordStore.open(saved[shards], device="cpu", io_mode=io_mode, max_gap_sectors=max_gap)
     ids = _beam(beam, t.n)
     for _ in range(2):  # counters accumulate across rounds
         jv, jn = j._host_fetch(ids)
@@ -137,7 +138,7 @@ def test_fetch_and_counters_match_reference(saved, shards, io_mode, max_gap, bea
 def test_submit_neighbors_match_record_neighbors(saved):
     """The sidecar rows submit() serves equal the records' nbrs fields, and
     the drained vectors equal fetch's: what makes the pipeline exact."""
-    store = DiskRecordStore.open(saved[2])
+    store = DiskRecordStore.open(saved[2], device="cpu")
     ids = np.random.default_rng(3).integers(-1, store.n, size=(5, 7)).astype(np.int32)
     want_v, want_n = store._host_fetch(ids)
     token, nbrs = store._host_submit(ids)
@@ -155,7 +156,7 @@ def test_submit_neighbors_match_record_neighbors(saved):
 
 
 def test_drain_unknown_token_raises(saved):
-    store = DiskRecordStore.open(saved[1])
+    store = DiskRecordStore.open(saved[1], device="cpu")
     ids = torch.zeros((1, 2), dtype=torch.int32)
     with pytest.raises(KeyError, match="unknown token"):
         store.drain(10**6, ids, True)
@@ -168,7 +169,7 @@ def test_drain_unknown_token_raises(saved):
 
 
 def test_abandon_pending_retires_orphaned_rounds(saved):
-    store = DiskRecordStore.open(saved[1])
+    store = DiskRecordStore.open(saved[1], device="cpu")
     rng = np.random.default_rng(7)
     beams = [torch.from_numpy(rng.integers(-1, store.n, size=(2, 3)).astype(np.int32))
              for _ in range(3)]
@@ -215,13 +216,14 @@ def test_faulted_fetch_matches_reference(saved, io_mode, case):
         "short_reads": (((0, "short"), (1, "short")), {}),
     }[case]
     stores = []
-    for pkg, plan_cls, retry_cls, store_cls in ((0, JPlan, JRetry, JDisk),
-                                                (1, FaultPlan, RetryPolicy, DiskRecordStore)):
+    for on, plan_cls, retry_cls, store_cls in (({}, JPlan, JRetry, JDisk),
+                                               ({"device": "cpu"}, FaultPlan, RetryPolicy,
+                                                DiskRecordStore)):
         retry = retry_cls(max_retries=kw["retry"][0], backoff_s=kw["retry"][1]) \
             if "retry" in kw else None
         stores.append(store_cls.open(saved[2], io_mode=io_mode, max_gap_sectors=0,
                                      faults=plan_cls(seed=1, schedule=schedule), retry=retry,
-                                     on_error=kw.get("on_error", "fail")))
+                                     on_error=kw.get("on_error", "fail"), **on))
     ids = _beam("dups", stores[0].n)
     outs = []
     for store in stores:
@@ -243,7 +245,7 @@ def test_faulted_fetch_matches_reference(saved, io_mode, case):
 
 
 def test_warm_and_drop_page_cache(saved, tmp_path):
-    store = DiskRecordStore.open(saved[2])
+    store = DiskRecordStore.open(saved[2], device="cpu")
     store.warm(background=False)
     seg_bytes = sum(os.path.getsize(s.path) for s in store._segments)
     assert store.io_counters()["warmed_bytes"] == seg_bytes
@@ -257,8 +259,94 @@ def test_warm_and_drop_page_cache(saved, tmp_path):
     store.close()
 
 
+def _within(seconds: float, body) -> None:
+    """Run ``body`` on a thread and fail the test if it has not returned
+    after ``seconds`` (a hung warmer must not cost the suite its clock)."""
+    err = []
+
+    def run():
+        try:
+            body()
+        except BaseException as e:  # noqa: BLE001 — re-raised on the test's thread
+            err.append(e)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    assert not t.is_alive(), f"did not finish within {seconds} s"
+    if err:
+        raise err[0]
+
+
+def test_warm_reentrant_counts_one_pass(saved):
+    """A second warm while one runs stops and joins the first: no deadlock,
+    and warmed_bytes never double-counts (one cut-short pass + one full)."""
+    def body():
+        store = DiskRecordStore.open(saved[2], device="cpu")
+        total = sum(os.path.getsize(s.path) for s in store._segments)
+        first = store.warm(background=True, chunk_bytes=1 << 12)
+        second = store.warm(background=True, chunk_bytes=1 << 16)
+        assert not first.is_alive()  # joined before the second started
+        assert store.warm_wait(timeout=30.0) and not second.is_alive()
+        assert total <= store.io_counters()["warmed_bytes"] < 2 * total
+        store.reset_io_counters()
+        store.warm(background=True, chunk_bytes=1 << 12)
+        store.warm(background=False)
+        assert store.io_counters()["warmed_bytes"] < 2 * total
+        store.close()
+    _within(60.0, body)
+
+
+def test_close_mid_warm_stops_the_warmer(saved, monkeypatch):
+    """close() during a warm signals the thread, which ends promptly and
+    reads through its own fds only (none of the store's, all closed); a
+    later warm on the closed store raises."""
+    def body():
+        store = DiskRecordStore.open(saved[2], device="cpu")
+        total = sum(os.path.getsize(s.path) for s in store._segments)
+        warm_fds, foreign = set(), []  # the fds the warmer opened; reads through others
+        real_open, real_pread = os.open, os.pread
+
+        def on_warmer() -> bool:
+            return threading.current_thread().name == "gateann-warm"
+
+        def open_(*args, **kwargs):
+            fd = real_open(*args, **kwargs)
+            if on_warmer():
+                warm_fds.add(fd)
+            return fd
+
+        def pread(fd, n, off):
+            if on_warmer() and fd not in warm_fds:
+                foreign.append(fd)
+            return real_pread(fd, n, off)
+
+        for seg in store._segments:
+            seg.open_fd()
+        monkeypatch.setattr(os, "open", open_)
+        monkeypatch.setattr(os, "pread", pread)
+        t = store.warm(background=True, chunk_bytes=1 << 12)
+        store.close()
+        assert all(seg.fd < 0 for seg in store._segments)
+        assert store.warm_wait(timeout=30.0) and not t.is_alive()
+        assert not foreign, f"the warmer read through fds it did not open: {foreign}"
+        assert store.io_counters()["warmed_bytes"] <= total
+        with pytest.raises(ValueError, match="closed store"):
+            store.warm(background=False)
+        with pytest.raises(ValueError, match="closed store"):
+            store.warm(background=True)
+    _within(60.0, body)
+
+
+def test_open_without_device_raises_without_cuda(saved, monkeypatch):
+    """DiskRecordStore's device defaults to the card, as every entry point's."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DiskRecordStore.open(saved[1])
+
+
 def test_configure_resilience(saved):
-    store = DiskRecordStore.open(saved[1])
+    store = DiskRecordStore.open(saved[1], device="cpu")
     with pytest.raises(ValueError):
         store.configure_resilience(on_error="nope")
     store.configure_resilience(retry=RetryPolicy(max_retries=2), on_error="degrade",
@@ -266,7 +354,7 @@ def test_configure_resilience(saved):
     assert (store.retry_policy.max_retries, store.on_error, store.round_deadline_s) == (
         2, "degrade", 0.5)
     with pytest.raises(ValueError):
-        DiskRecordStore.open(saved[1], io_mode="mmap")
+        DiskRecordStore.open(saved[1], device="cpu", io_mode="mmap")
     store.close()
 
 

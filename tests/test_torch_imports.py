@@ -37,9 +37,11 @@ GUARD = textwrap.dedent("""
     print(" ".join(names))
 """)
 
-# modules the port must hold, the disk tier and the last two kernels included
+# modules the port must hold: the disk tier, the kernels, the build and the cache tiers
 EXPECTED = {
     "repro_torch.core.engine", "repro_torch.core.search", "repro_torch.core.pq",
+    "repro_torch.core.io_model", "repro_torch.core.graph",
+    "repro_torch.store.cache", "repro_torch.store.adaptive",
     "repro_torch.store.disk", "repro_torch.store.faults", "repro_torch.store.staging",
     "repro_torch.store.vector_store", "repro_torch.store.format",
     "repro_torch.kernels.ops", "repro_torch.kernels.topk_merge",
@@ -55,7 +57,7 @@ def test_port_imports_neither_jax_nor_repro():
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 22 and EXPECTED <= names, sorted(EXPECTED - names)
+    assert len(names) >= 26 and EXPECTED <= names, sorted(EXPECTED - names)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -129,18 +129,29 @@ def test_load_without_device_raises_without_cuda(index_path, monkeypatch):
 
 
 def test_unported_tiers_refused(index_path):
-    """The cache tiers are not ported yet; faults= needs the disk tier."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        GateANNEngine.load(index_path, device="cpu", cache_budget_bytes=1 << 20)
+    """Every field of the reference's EngineConfig is served now: the cache
+    tiers and the build knobs are accepted on load; a field the port does
+    not know is refused by name, and so are a bad tier, a bad cache policy
+    and faults= off the disk tier."""
+    from repro.core import EngineConfig as JEngineConfig
+    from repro_torch.store import AdaptiveRecordCache, CachedRecordStore
+
+    assert [f.name for f in dataclasses.fields(EngineConfig)] == \
+        [f.name for f in dataclasses.fields(JEngineConfig)]
+    eng = GateANNEngine.load(index_path, device="cpu", cache_budget_bytes=1 << 20)
+    assert isinstance(eng.record_store, CachedRecordStore)
+    eng = GateANNEngine.load(index_path, device="cpu", cache_budget_bytes=1 << 20,
+                             cache_policy="adaptive")
+    assert isinstance(eng.record_store, AdaptiveRecordCache)
+    assert GateANNEngine.load(index_path, device="cpu", build_l=40).config.build_l == 40
     with pytest.raises(ValueError, match="faults= wraps the disk tier"):
         GateANNEngine.load(index_path, device="cpu", faults=object())
-    with pytest.raises(ValueError, match="unknown EngineConfig"):
+    with pytest.raises(ValueError, match="unknown EngineConfig.*no_such_knob"):
         GateANNEngine.load(index_path, device="cpu", no_such_knob=1)
-    # the reference's build knobs are refused, not silently ignored
-    with pytest.raises(ValueError, match="unknown EngineConfig"):
-        GateANNEngine.load(index_path, device="cpu", build_l=40)
     with pytest.raises(ValueError, match="store_tier"):
         GateANNEngine.load(index_path, device="cpu", store_tier="ssd")
+    with pytest.raises(ValueError, match="cache_policy"):
+        GateANNEngine.load(index_path, device="cpu", cache_policy="lru")
     with pytest.raises(ValueError):
         SearchConfig(mode="nope")
 

@@ -76,13 +76,13 @@ def test_frontier_ops_match(seed, ties):
             jfr.mark_expanded(ji, jslots, jvalid).expanded, "mark_expanded")
     _eq(tfr.has_unexpanded(ti), jfr.has_unexpanded(ji), "has_unexpanded")
     jr = jfr.results_insert(jfr.make_results(4, 5), jnp.asarray(new_ids), jnp.asarray(new_d))
-    tr = tfr.results_insert(tfr.make_results(4, 5), torch.from_numpy(new_ids), torch.from_numpy(new_d))
+    tr = tfr.results_insert(tfr.make_results(4, 5, "cpu"), torch.from_numpy(new_ids), torch.from_numpy(new_d))
     _eq(tr.ids, jr.ids, "results.ids")
     _eq(tr.dists, jr.dists, "results.dists")
 
 
 def test_make_frontier_sentinels():
-    jf, tf = jfr.make_frontier(2, 3), tfr.make_frontier(2, 3)
+    jf, tf = jfr.make_frontier(2, 3), tfr.make_frontier(2, 3, "cpu")
     for f in jf._fields:
         _eq(getattr(tf, f), getattr(jf, f), f)
     assert tf.dists.dtype == torch.float32 and float(tf.dists[0, 0]) == float(INF)
