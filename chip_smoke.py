@@ -44,6 +44,18 @@ the card.  Phases, each printing its own lines:
      adaptive cache over the 4 batches; each run equal to the uncached
      one, n_ios + n_cache_hits equal to its n_ios, n_ios falling with the
      budget, records_read == sum(n_ios);
+  serve. retrieval serving on the 1M index as ``benchmarks/serve_bench.py``
+     deploys it: the disk tier under an adaptive cache of 1% of the
+     records (``refresh_every`` 4), gate at L = 50, W = 8, depth 2, buckets
+     8/16/32, behind a ``ServeFrontend`` of 4 tenants (labels 0-3),
+     ``max_batch`` 32, a 2 ms batch window, ``retry_then_degrade``; 8
+     closed-loop client threads send the 1,024 queries, tenants drawn
+     Zipf(1.1) from a seed.  Then the memory tier, unfused and fused; then
+     the disk tier again under injected transient EIO.  Every request is
+     served, equal bit for bit to a direct search; the registry's
+     disk.records_read == io_counters == search.ios{tier=disk} == served +
+     padding reads, drift 0.  Last, one gate batch with telemetry off and
+     on: the same kernel launches, off equal to the bare loop's;
   6. the brute-force PQ scan: every code scored by ``pq.adc_lookup``,
      filtered, top-10 by two levels of ``kernels.ops.topk_merge``;
   7. card vs CPU on a 20,000-vector index in all five modes;
@@ -80,6 +92,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.core import EngineConfig, GateANNEngine, SearchConfig, recall_at_k  # noqa: E402
 from repro_torch.core import frontier as fr  # noqa: E402
 from repro_torch.core import graph as graphm  # noqa: E402
@@ -91,12 +104,16 @@ from repro_torch.kernels import l2_dist as l2k  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import pq_lookup as pqk  # noqa: E402
 from repro_torch.kernels import topk_merge as tkk  # noqa: E402
+from repro_torch.serve import RAGServer, ServeFrontend, TenantSpec  # noqa: E402
 from repro_torch.store.adaptive import AdaptiveRecordCache  # noqa: E402
 from repro_torch.store.cache import record_nbytes  # noqa: E402
 from repro_torch.store.disk import DiskRecordStore  # noqa: E402
+from repro_torch.store.faults import FaultPlan  # noqa: E402
 from repro_torch.store.format import write_index  # noqa: E402
 # the re-rank's edge cases and its route's edge, as the card tests make them
 from test_torch_cuda import RERANK_CASES, first_split, rerank_inputs  # noqa: E402
+# a batch's device launches, and the loop without the engine's telemetry hooks
+from test_torch_cuda import bare_search, device_launches  # noqa: E402
 
 MODES = ("gate", "post", "early", "pre_naive", "unfiltered")
 # H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the tensor cores
@@ -110,6 +127,10 @@ DEPTH = 4  # the pipelined loop's depth on the disk tier
 BUILD_N, BUILD_L, ALPHA = 100_000, 64, 1.2  # the build phase: its N, L_build and alpha
 CACHE_FRACTIONS = (0.01, 0.10)  # the cache phase's budgets, as shares of the records
 SCAN_BATCH, SCAN_CHUNK = 64, 1000  # brute-force scan: queries a batch, top-k chunk width
+# the serve phase: benchmarks/serve_bench.py::make_frontend's deployment
+SERVE = dict(mode="gate", search_l=50, beam_width=8, result_k=10)
+SERVE_DEPTH, SERVE_BUCKETS, SERVE_CACHE_FRACTION = 2, (8, 16, 32), 0.01
+SERVE_TENANTS, SERVE_CLIENTS, SERVE_ALPHA, SERVE_EIO = 4, 8, 1.1, 0.005
 REPO = Path(__file__).resolve().parent
 
 
@@ -1039,6 +1060,225 @@ def cache_phase(eng, path: str, q, targets, mem_runs: dict, card: str, cap) -> d
     return summary
 
 
+# ------------------------------------------------------------ the serve phase
+def drive_clients(srv, q_np: np.ndarray, tenants: np.ndarray):
+    """``SERVE_CLIENTS`` closed-loop client threads, each with one request
+    in flight, take the schedule in order; returns the served ids, each
+    request's latency (submit to result) and the wall time."""
+    import threading
+
+    n = tenants.shape[0]
+    ids = np.full((n, SERVE["result_k"]), -2, np.int32)
+    lat = np.zeros(n)
+    errs, lock, cursor = [], threading.Lock(), [0]
+
+    def client():
+        while True:
+            with lock:
+                i = cursor[0]
+                if i >= n:
+                    return
+                cursor[0] += 1
+            t0 = time.perf_counter()
+            try:
+                h = srv.submit(f"t{tenants[i]}", q_np[i], timeout=30.0)
+                ids[i] = h.result(timeout=120.0)
+            except Exception as e:  # noqa: BLE001 — every failure is reported below
+                with lock:
+                    errs.append((i, repr(e)))
+                continue
+            lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client, name=f"serve-client-{k}", daemon=True)
+               for k in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600.0)
+    wall = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in threads), "a serve client hung")
+    require(not errs, f"{len(errs)} requests failed, first {errs[:3]}")
+    return ids, lat, wall
+
+
+def serve_run(name: str, engine, cfg, q_np, tenants, cap, card: str) -> dict:
+    """One front end over ``engine``: the schedule through it, its launches
+    counted from 0, its report and timings."""
+    rag = RAGServer(engine=engine, passage_tokens=np.zeros((int(engine.codes.shape[0]), 4), np.int32),
+                    search_config=cfg, bucket_sizes=SERVE_BUCKETS)
+    specs = [TenantSpec(f"t{i}", "label", np.int32(i)) for i in range(SERVE_TENANTS)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    PLAIN_MERGES[0] = 0
+    with ServeFrontend(rag, specs, max_batch=32, batch_window_s=0.002,
+                       fault_policy="retry_then_degrade") as srv:
+        ids, lat, wall = drive_clients(srv, q_np, tenants)
+        rep = srv.io_report()
+    cap.launches[name] = {**_build.LAUNCHES, "plain_merges": PLAIN_MERGES[0]}
+    fused = cfg.use_fused_kernel
+    require_launches(cap, name, ("pq_lookup", "rerank") + (("fused_traversal",) if fused else ()),
+                     ("l2_dist", "plain_merges") + (() if fused else ("fused_traversal",)))
+    n = tenants.shape[0]
+    require(rep["completed"] == n and rep["failed"] == 0 and rep["rejected"] == 0
+            and rep["deadline_shed"] == 0, f"{name}: not every request served: {rep}")
+    out = {"qps": n / wall, "wall_s": wall, "p50_ms": float(np.percentile(lat, 50) * 1e3),
+           "p99_ms": float(np.percentile(lat, 99) * 1e3),
+           "spans_mean_ms": {k: v * 1e3 for k, v in rep["spans_mean_s"].items()},
+           "mean_batch_size": rep["mean_batch_size"], "batches": rep["batches"],
+           "padded_rows": rep.get("padded_rows", 0), "launches": cap.launches[name],
+           **{k: rep[k] for k in ("slow_tier_reads", "cache_hits", "cache_hit_rate")}}
+    for k in ("measured_slow_reads", "reconcile_drift", "cache_refreshes", "cache_partitions"):
+        if k in rep:
+            out[k] = rep[k]
+    sp = out["spans_mean_ms"]
+    log("serve", f"{name}: {n} requests by {SERVE_CLIENTS} clients: served QPS {out['qps']:.1f}, "
+        f"request latency p50 {out['p50_ms']:.2f} ms p99 {out['p99_ms']:.2f} ms; mean spans "
+        f"queue_wait {sp['queue_wait']:.2f} ms batch_form {sp['batch_form']:.3f} ms search "
+        f"{sp['search']:.2f} ms; mean_batch_size {out['mean_batch_size']:.2f} over "
+        f"{out['batches']} batches; slow-tier reads {out['slow_tier_reads']} cache hits "
+        f"{out['cache_hits']}; launches {json.dumps(out['launches'])} on {card}")
+    return {"ids": ids, "rag": rag, "summary": out}
+
+
+def telemetry_batch(eng, q, targets, card: str, cap, reps: int = 7) -> dict:
+    """One gate batch on the memory tier with telemetry off and on (the
+    registry and the process tracer): the same kernel launches; off, the
+    same device launches as the bare loop; both p50s, in turns."""
+    cfg = SearchConfig(mode="gate", **SEARCH)
+    kw = dict(filter_kind="label", filter_params=targets, search_config=cfg)
+    on_reg = obs.MetricsRegistry(enabled=True)
+
+    def search(on: bool):
+        if not on:
+            return eng.search(q, **kw)
+        with obs.use_registry(on_reg):
+            obs.trace.enable()
+            try:
+                return eng.search(q, **kw)
+            finally:
+                obs.trace.disable()
+
+    launches, lat = {}, {False: [], True: []}
+    for on in (False, True):
+        _build.reset_launches()
+        search(on)
+        torch.cuda.synchronize()
+        launches[on] = dict(_build.LAUNCHES)
+        cap.launches["serve_telemetry_" + ("on" if on else "off")] = launches[on]
+    require(launches[False] == launches[True],
+            f"telemetry on changed the kernel launches: {launches[False]} vs {launches[True]}")
+    dev = {"off": device_launches(lambda: search(False)), "on": device_launches(lambda: search(True)),
+           "bare_loop": device_launches(lambda: bare_search(eng, q, "label", targets, cfg))}
+    require(dev["off"] == dev["bare_loop"],
+            f"telemetry off launches {dev['off']} on the device, the bare loop {dev['bare_loop']}")
+    for k in range(reps):  # off, on, on, off, ...
+        for on in ((False, True) if k % 2 == 0 else (True, False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            search(on)
+            torch.cuda.synchronize()
+            lat[on].append(time.perf_counter() - t0)
+    obs.trace.default_tracer().reset()
+    out = {"kernel_launches": launches[False], "device_launches": dev,
+           "p50_off_ms": float(np.median(lat[False]) * 1e3),
+           "p50_on_ms": float(np.median(lat[True]) * 1e3), "pairs": reps,
+           "engine_search_spans": on_reg.histogram("trace.span_seconds", span="engine.search").count}
+    log("serve", f"telemetry, one gate batch of {q.shape[0]} on the memory tier: kernel launches "
+        f"off == on {json.dumps(launches[False])}; device launches off {dev['off']} == the bare "
+        f"loop's {dev['bare_loop']}, on {dev['on']}; p50 off {out['p50_off_ms']:.2f} ms, on "
+        f"{out['p50_on_ms']:.2f} ms ({reps} pairs in turns) on {card}")
+    return out
+
+
+def serve_phase(eng, path: str, q, targets, card: str, cap) -> dict:
+    """Retrieval serving on the 1M index (the module docstring's serve
+    step).  The direct reference is a fresh uncached disk engine's search
+    of each tenant's queries; each served run must equal it bit for bit."""
+    n = int(eng.codes.shape[0])
+    q_np = q.cpu().numpy()
+    probs = np.arange(1, SERVE_TENANTS + 1, dtype=np.float64) ** -SERVE_ALPHA
+    tenants = np.random.default_rng(7).choice(SERVE_TENANTS, size=q_np.shape[0],
+                                              p=probs / probs.sum())
+    disk_cfg = SearchConfig(pipeline_depth=SERVE_DEPTH, **SERVE)
+    budget = int(n * SERVE_CACHE_FRACTION) * record_nbytes(DIM, DEGREE)
+    summary = {"tenant_requests": np.bincount(tenants, minlength=SERVE_TENANTS).tolist(),
+               "cache_records": budget // record_nbytes(DIM, DEGREE)}
+    log("serve", f"{SERVE_TENANTS} tenants (labels 0-{SERVE_TENANTS - 1}), requests by tenant "
+        f"{summary['tenant_requests']} (Zipf {SERVE_ALPHA}); {SERVE}, depth {SERVE_DEPTH}, buckets "
+        f"{SERVE_BUCKETS}; adaptive cache of {summary['cache_records']:,} records, refresh_every 4")
+
+    # the direct reference: a fresh uncached disk engine, each tenant's queries
+    fresh = GateANNEngine.load(path, store_tier="disk", max_gap_sectors=0)
+    direct = np.full((q_np.shape[0], SERVE["result_k"]), -2, np.int32)
+    lat = []
+    for t in range(SERVE_TENANTS):
+        rows = np.flatnonzero(tenants == t)
+        for s in range(0, rows.size, BATCH):
+            idx = rows[s:s + BATCH]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fresh.search(q_np[idx], filter_kind="label",
+                               filter_params=np.full(idx.size, t, np.int32), search_config=disk_cfg)
+            direct[idx] = out.ids.cpu().numpy()
+            lat.append(time.perf_counter() - t0)
+    fresh.measured_store().close()
+    summary["direct_disk"] = {"qps": q_np.shape[0] / sum(lat), "batches": len(lat),
+                              "p99_batch_ms": float(np.percentile(lat, 99) * 1e3)}
+    log("serve", f"direct disk-tier search (no cache, depth {SERVE_DEPTH}, each tenant's queries in "
+        f"batches of up to {BATCH}): QPS {summary['direct_disk']['qps']:.1f}, batch p99 "
+        f"{summary['direct_disk']['p99_batch_ms']:.2f} ms over {len(lat)} batches on {card}")
+
+    def disk_engine(faults=None):
+        return GateANNEngine.load(path, store_tier="disk", max_gap_sectors=0,
+                                  cache_budget_bytes=budget, cache_policy="adaptive",
+                                  refresh_every=4, faults=faults)
+
+    runs = {}
+    for name, faults in (("serve_disk", None),
+                         ("serve_disk_faults", FaultPlan(seed=11, p_eio=SERVE_EIO))):
+        reg = obs.MetricsRegistry(enabled=True)
+        with obs.use_registry(reg):  # the store captures it at load; the search reads it per call
+            deng = disk_engine(faults)
+            run = serve_run(name, deng, disk_cfg, q_np, tenants, cap, card)
+        store, rag = deng.measured_store(), run["rag"]
+        io = store.io_counters()
+        same(torch.from_numpy(run["ids"]), torch.from_numpy(direct), f"{name}: served vs direct")
+        reads = {"registry disk.records_read": reg.family_total("disk.records_read"),
+                 "io_counters records_read": io["records_read"],
+                 "registry search.ios{tier=disk}": reg.family_total("search.ios", tier="disk"),
+                 "served + padding reads": rag.served_ios + rag.padding_ios}
+        require(len(set(reads.values())) == 1, f"{name}: reads do not reconcile: {reads}")
+        require(rag.reconcile_drift == 0 and io["abandoned_tokens"] == 0,
+                f"{name}: drift {rag.reconcile_drift}, abandoned {io['abandoned_tokens']}")
+        require(reg.family_total("disk.retried_ios") == io["retried_ios"],
+                f"{name}: registry retried_ios {reg.family_total('disk.retried_ios')} vs "
+                f"{io['retried_ios']}")
+        run["summary"].update(records_read=io["records_read"], retried_ios=io["retried_ios"],
+                              degraded_records=io["degraded_records"],
+                              fault_counters=store.fault_counters())
+        if faults is not None:
+            require(io["retried_ios"] > 0, f"{name}: no read was retried")
+            same(torch.from_numpy(run["ids"]), torch.from_numpy(runs["serve_disk"]["ids"]),
+                 f"{name}: served vs the fault-free run")
+        log("serve", f"{name}: every request served == direct search bit for bit; reads "
+            f"{json.dumps(reads)}; drift 0; retried_ios {io['retried_ios']} (registry == store), "
+            f"degraded {io['degraded_records']}, faults {json.dumps(store.fault_counters())}")
+        store.close()
+        runs[name] = run
+        del deng
+    for name, fused in (("serve_mem_unfused", False), ("serve_mem_fused", True)):
+        runs[name] = serve_run(name, eng, SearchConfig(use_fused_kernel=fused, **SERVE),
+                               q_np, tenants, cap, card)
+        same(torch.from_numpy(runs[name]["ids"]), torch.from_numpy(direct),
+             f"{name}: served vs direct")
+        log("serve", f"{name}: every request served == direct search bit for bit")
+    summary.update({name: run["summary"] for name, run in runs.items()})
+    summary["telemetry"] = telemetry_batch(eng, q[:BATCH], targets[:BATCH], card, cap)
+    print(json.dumps({"serve": summary, "card": card}), flush=True)
+    return summary
+
+
 # ---------------------------------------------------------------- phase 6
 def scan_topk(lut, codes, labels, targets, k: int = 10):
     """Brute-force filtered PQ search: every code scored, non-matching
@@ -1498,6 +1738,7 @@ def main(argv=None) -> int:
         mem_runs = search_phase(eng, q, targets, gt, card, cap)
         ssd_phase(path, q, targets, mem_runs, card, cap)
         cache_phase(eng, path, q, targets, mem_runs, card, cap)
+        serve_phase(eng, path, q, targets, card, cap)
         scan_phase(eng, q, targets, gt, card, cap)
         del eng, mem_runs
         torch.cuda.empty_cache()

@@ -26,6 +26,13 @@ pass ``device="cpu"`` and run the kernels' plain versions.
 the engine's device; ``save`` writes the index file either package
 loads.  On the disk tier ``pipeline_depth > 1`` runs the pipelined loop,
 which overlaps each round's record read with the next rounds' traversal.
+
+Telemetry, as the reference's (``repro_torch.obs``): every ``search``
+counts one ``search.dispatch{mode,tier,pipelined}`` and runs inside an
+``engine.search`` span; with the registry enabled it also folds the
+batch's stats into the ``search.*`` families, which copies them to the
+host (one copy, so on the card the span covers the device work).  With
+telemetry off a search adds no sync, no copy and no device launch.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import graph as graphm
 from repro_torch.core import pq as pqm
 from repro_torch.core import search as searchm
@@ -484,21 +492,28 @@ class GateANNEngine:
             submit, drain = getattr(store, "submit", None), getattr(store, "drain", None)
             if submit is None or drain is None:
                 submit = drain = None
+        reg = obs.default_registry()
+        reg.counter("search.dispatch", mode=cfg.mode, tier=self.config.store_tier,
+                    pipelined="1" if submit is not None else "0").inc()
         try:
-            out = searchm.filtered_search(
-                store=store,
-                neighbor_store=self.neighbor_store,
-                filter_check=self.make_filter(filter_kind, filter_params),
-                lut=pqm.build_lut(self.codec, q),
-                codes=self.codes,
-                entry=torch.tensor(self.medoid, dtype=torch.int32, device=self.device),
-                queries=q,
-                config=cfg,
-                cached_mask=cached_mask,
-                visit_counts=visit_counts,
-                submit=submit,
-                drain=drain,
-            )
+            with obs.trace.span("engine.search", mode=cfg.mode):
+                out = searchm.filtered_search(
+                    store=store,
+                    neighbor_store=self.neighbor_store,
+                    filter_check=self.make_filter(filter_kind, filter_params),
+                    lut=pqm.build_lut(self.codec, q),
+                    codes=self.codes,
+                    entry=torch.tensor(self.medoid, dtype=torch.int32, device=self.device),
+                    queries=q,
+                    config=cfg,
+                    cached_mask=cached_mask,
+                    visit_counts=visit_counts,
+                    submit=submit,
+                    drain=drain,
+                )
+                if reg.enabled:  # the only host copy telemetry adds
+                    obs.stats.record_search_stats(reg, out.stats, mode=cfg.mode,
+                                                  tier=self.config.store_tier)
         except BaseException:
             # a failure with pipelined rounds in flight: their tokens would
             # pin reader slots until close(), so drain or cancel them here

@@ -46,6 +46,11 @@ dispatches — the adaptive cache's online counters — and comes back on
 ``SearchOutput``.  Both happen in ``account``, the one place every path
 (unfused, fused, synchronous, pipelined) counts a round.  Results are
 bit-identical with or without a cache.
+
+**Telemetry**: the reference counts ``search.traces`` here, once per jit
+trace of the loop (which loop variant compiled).  Eager PyTorch traces
+and compiles nothing, so the port has no trace to count and leaves the
+family out; a per-call count is ``search.dispatch`` in the engine.
 """
 from __future__ import annotations
 

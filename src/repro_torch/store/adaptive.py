@@ -28,10 +28,11 @@ Results stay bit-identical to the uncached engine by construction: the
 cache only reroutes record fetches between the slow tier (``n_ios``) and
 the cache tier (``n_cache_hits``).
 
-The reference's ``cache.partition_evictions`` / ``cache.refreshes`` /
-``cache.refresh_sets`` telemetry counters are the plain attributes
-``partition_evictions``, ``n_refreshes`` and ``refresh_sets`` here, until
-the observability layer is ported.
+Telemetry, as the reference's, in the process registry: the counters
+``cache.partition_evictions`` (partitions the LRU dropped),
+``cache.refreshes`` and ``cache.refresh_sets`` (hot sets rebuilt), and
+the gauge ``cache.partitions``.  ``n_refreshes`` and
+``last_refresh_sets`` stay attributes: the cost model reads them.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.store.cache import CachedRecordStore, _host, record_nbytes, select_hot_set
 
@@ -117,8 +119,6 @@ class AdaptiveRecordCache:
     n_refreshes: int = 0
     batches_since_refresh: int = 0
     last_refresh_sets: int = 1  # hot sets rebuilt by the latest refresh
-    refresh_sets: int = 0  # hot sets rebuilt by every refresh so far
-    partition_evictions: int = 0  # partitions the LRU dropped
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -198,7 +198,7 @@ class AdaptiveRecordCache:
                 self.partitions[bucket] = part
                 while len(self.partitions) > self.max_partitions:
                     self.partitions.popitem(last=False)  # evict LRU
-                    self.partition_evictions += 1
+                    obs.default_registry().counter("cache.partition_evictions").inc()
             part.counts = self._ema(part.counts, bc)
             part.dirty = True
             self.partitions.move_to_end(bucket)
@@ -249,9 +249,13 @@ class AdaptiveRecordCache:
                 part.dirty = False
                 sets += 1
         self.last_refresh_sets = sets
-        self.refresh_sets += sets
         self.n_refreshes += 1
         self.batches_since_refresh = 0
+        reg = obs.default_registry()
+        if reg.enabled:
+            reg.counter("cache.refreshes").inc()
+            reg.counter("cache.refresh_sets").inc(sets)
+            reg.gauge("cache.partitions").set(len(self.partitions))
 
     def maybe_refresh(self) -> bool:
         """Refresh if the cadence is due; returns whether it ran."""

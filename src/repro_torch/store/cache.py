@@ -19,18 +19,20 @@ dispatched ids are hits and counts them as ``n_cache_hits`` instead of
 masked to -1 before the slow-tier fetch, so a hit costs no slow-tier
 read).
 
-The reference's ``cache.materializations`` telemetry counter is the
-plain class attribute ``CachedRecordStore.materializations`` here (by
-policy), until the observability layer is ported.
+Telemetry, as the reference's: every ``wrap`` adds one to the
+``cache.materializations{policy}`` counter of the process registry (the
+adaptive cache refreshes through ``wrap``, so this counts its hot-set
+rebuilds too).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, ClassVar
+from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.store.format import record_nbytes
 from repro_torch.store.vector_store import is_lazy_host
@@ -169,9 +171,6 @@ class CachedRecordStore:
     cache_neighbors: torch.Tensor  # (C, R) full adjacency of the hot records
     policy: str = "visit_freq"
 
-    # materialisations by policy (the reference's cache.materializations)
-    materializations: ClassVar[dict] = {}
-
     @classmethod
     def wrap(
         cls,
@@ -214,7 +213,7 @@ class CachedRecordStore:
                 [cache_vecs, torch.zeros((pad, dim), dtype=torch.float32, device=dev)])
             cache_nbrs = torch.cat([cache_nbrs, torch.full(
                 (pad, cache_nbrs.shape[1]), -1, dtype=torch.int32, device=dev)])
-        cls.materializations[policy] = cls.materializations.get(policy, 0) + 1
+        obs.default_registry().counter("cache.materializations", policy=policy).inc()
         return cls(backing=backing, slot_of=torch.from_numpy(slot_of).to(dev),
                    cache_vectors=cache_vecs, cache_neighbors=cache_nbrs, policy=policy)
 

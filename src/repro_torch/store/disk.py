@@ -61,10 +61,16 @@ every read happened on the host before its round's records were handed
 back, so the counters are complete once the search has returned; read
 them after ``torch.cuda.synchronize()`` when timing the same run.
 
-Not ported: the reference's ``repro.obs`` mirror of these counters and
-its ``disk.*`` spans (they come with the obs port); the counters stay
-plain attributes here, and ``io_counters()`` returns the reference's
-keys.
+Telemetry, as the reference's: every counter above is mirrored into a
+``disk.<counter>{store=<file name>}`` family of the registry the store
+captured at construction (``obs.default_registry()``; tests swap in a
+private one with ``obs.use_registry``), plus ``disk.submits`` /
+``disk.drains`` / ``disk.abandon_events`` and the ``disk.inflight_depth``
+gauge.  The families stay monotonic across ``reset_io_counters()``,
+which resets only the attributes.  The spans ``disk.retry`` (a backoff
+sleep), ``disk.preadv`` (a round's coalesced read), ``disk.submit`` (the
+sidecar gather) and ``disk.drain_wait`` (waiting for a pooled read) go to
+the process tracer.  Disabled, each site costs one branch.
 """
 from __future__ import annotations
 
@@ -79,6 +85,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.store.format import (
     PAGE_BYTES,
@@ -369,6 +376,19 @@ class DiskRecordStore:
             self._io_gather = _passthrough_gather
         self._lock = threading.Lock()
         self._reset_counters_locked()
+        # the registry mirror (captured now: stores built under
+        # obs.use_registry keep reporting to that registry)
+        self._obs = obs.default_registry()
+        self._obs_label = os.path.basename(path)
+        self._obs_counters = {
+            name: self._obs.counter(f"disk.{name}", store=self._obs_label)
+            for name in ("records_read", "pages_read", "bytes_read", "unique_sectors_read",
+                         "ranges_read", "syscalls", "gap_sectors_read", "fetch_rounds",
+                         "read_rounds", "overlapped_rounds", "submits", "drains",
+                         "abandoned_tokens", "abandon_events", "warmed_bytes", "retried_ios",
+                         "retry_exhausted", "deadline_trips", "degraded_records", "warm_errors")
+        }
+        self._obs_inflight = self._obs.gauge("disk.inflight_depth", store=self._obs_label)
         rd = record_dtype(header.dim, header.degree)
         idx = IndexFile(header)
         if header.shards:
@@ -446,6 +466,10 @@ class DiskRecordStore:
         if orphans:
             with self._lock:
                 self.abandoned_tokens += len(orphans)
+            if self._obs.enabled:
+                self._obs_counters["abandoned_tokens"].inc(len(orphans))
+                self._obs_counters["abandon_events"].inc()
+                self._obs_inflight.set(0)
         return len(orphans)
 
     def __del__(self):  # best-effort fd cleanup
@@ -495,7 +519,8 @@ class DiskRecordStore:
                 delay = rp.backoff(attempt)
                 if deadline is not None:
                     delay = min(delay, max(deadline - time.perf_counter(), 0.0))
-                time.sleep(delay)
+                with obs.trace.span("disk.retry", store=self._obs_label, errno=str(e.errno)):
+                    time.sleep(delay)
 
     def _fail_span(self, ok, tally, lo, hi, exc) -> None:
         """One read group failed after retries.  Under ``"degrade"`` and a
@@ -627,7 +652,8 @@ class DiskRecordStore:
             uniq, inv = np.unique(flat[vmask], return_inverse=True)
             u = int(uniq.size)
             try:
-                recs, ok_u = self._read_unique(uniq, io)
+                with obs.trace.span("disk.preadv", store=self._obs_label, io_mode=self.io_mode):
+                    recs, ok_u = self._read_unique(uniq, io)
             except OSError:
                 # completed calls and exhausted retries happened: fold the
                 # physical evidence in before propagating (no record was
@@ -641,6 +667,16 @@ class DiskRecordStore:
                     self.deadline_trips += io["deadline_trips"]
                     self.fetch_rounds += 1
                     self.read_rounds += 1
+                if self._obs.enabled:
+                    c = self._obs_counters
+                    c["ranges_read"].inc(io["ranges"])
+                    c["syscalls"].inc(io["syscalls"])
+                    c["gap_sectors_read"].inc(io["gap_sectors"])
+                    c["retried_ios"].inc(io["retried_ios"])
+                    c["retry_exhausted"].inc(io["retry_exhausted"])
+                    c["deadline_trips"].inc(io["deadline_trips"])
+                    c["fetch_rounds"].inc()
+                    c["read_rounds"].inc()
                 raise
             got = recs[inv]  # back to beam order, duplicates included
             gvec = got["vec"]
@@ -670,6 +706,28 @@ class DiskRecordStore:
             self.retry_exhausted += io["retry_exhausted"]
             self.deadline_trips += io["deadline_trips"]
             self.degraded_records += n_degraded
+        if self._obs.enabled:
+            c = self._obs_counters
+            # records before unique: a snapshot between the two increments
+            # under-counts unique, so unique_sectors_read <= records_read
+            # holds mid-flight too
+            c["records_read"].inc(m)
+            c["pages_read"].inc(m * self.pages_per_record)
+            c["bytes_read"].inc(m * self.sector_bytes)
+            c["unique_sectors_read"].inc(u)
+            c["ranges_read"].inc(io["ranges"])
+            c["syscalls"].inc(io["syscalls"])
+            c["gap_sectors_read"].inc(io["gap_sectors"])
+            c["fetch_rounds"].inc()
+            c["read_rounds"].inc(int(u > 0))
+            if io["retried_ios"]:
+                c["retried_ios"].inc(io["retried_ios"])
+            if io["retry_exhausted"]:
+                c["retry_exhausted"].inc(io["retry_exhausted"])
+            if io["deadline_trips"]:
+                c["deadline_trips"].inc(io["deadline_trips"])
+            if n_degraded:
+                c["degraded_records"].inc(n_degraded)
         return vecs, nbrs
 
     def _host_ids(self, ids: torch.Tensor) -> np.ndarray:
@@ -715,8 +773,9 @@ class DiskRecordStore:
         flat = np.clip(ids, 0, self.n - 1).reshape(-1)
         nbrs = np.full(ids.shape + (self.degree,), -1, np.int32)
         vmask = valid.reshape(-1)
-        if vmask.any():
-            nbrs.reshape(-1, self.degree)[vmask] = self._adjacency_host()[flat[vmask]]
+        with obs.trace.span("disk.submit", store=self._obs_label):
+            if vmask.any():
+                nbrs.reshape(-1, self.degree)[vmask] = self._adjacency_host()[flat[vmask]]
         job_ids = np.array(ids, copy=True)  # the caller may reuse its buffer
         with self._lock:
             if self._pool is None:
@@ -729,9 +788,16 @@ class DiskRecordStore:
             if out is not None:
                 self._staged[token] = out
             self._inflight += 1
+            inflight = self._inflight
             self.inflight_depth_max = max(self.inflight_depth_max, self._inflight)
-            if self._inflight >= 2:
+            overlapped = self._inflight >= 2
+            if overlapped:
                 self.overlapped_rounds += 1
+        if self._obs.enabled:
+            self._obs_counters["submits"].inc()
+            if overlapped:
+                self._obs_counters["overlapped_rounds"].inc()
+            self._obs_inflight.set(inflight)
         return np.int32(token), nbrs
 
     def _host_drain(self, token, ids: np.ndarray, flag) -> np.ndarray:
@@ -744,10 +810,15 @@ class DiskRecordStore:
             fut = self._pending.pop(int(token), None)
             if fut is not None:
                 self._inflight -= 1
+                inflight = self._inflight
         if fut is None:
             raise KeyError(f"drain of unknown token {int(token)} — not submitted, "
                            "already drained, or the store was closed")
-        got_vecs, _got_nbrs = fut.result()
+        with obs.trace.span("disk.drain_wait", store=self._obs_label):
+            got_vecs, _got_nbrs = fut.result()
+        if self._obs.enabled:
+            self._obs_counters["drains"].inc()
+            self._obs_inflight.set(inflight)
         return got_vecs
 
     def submit(self, ids: torch.Tensor) -> Tuple[int, torch.Tensor]:
@@ -809,6 +880,8 @@ class DiskRecordStore:
                 # mount): count it instead of discarding it
                 with self._lock:
                     self.warm_errors += 1
+                if self._obs.enabled:
+                    self._obs_counters["warm_errors"].inc()
                 continue
             try:
                 size = os.fstat(fd).st_size
@@ -820,6 +893,8 @@ class DiskRecordStore:
                     off += len(data)
                     with self._lock:
                         self.warmed_bytes += len(data)
+                    if self._obs.enabled:
+                        self._obs_counters["warmed_bytes"].inc(len(data))
             finally:
                 os.close(fd)
 
@@ -847,6 +922,8 @@ class DiskRecordStore:
                 # reports warm numbers as cold: count the miss
                 with self._lock:
                     self.warm_errors += 1
+                if self._obs.enabled:
+                    self._obs_counters["warm_errors"].inc()
                 continue
             try:
                 os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
@@ -924,7 +1001,8 @@ class DiskRecordStore:
         return self._injector.counters() if self._injector is not None else {}
 
     def reset_io_counters(self) -> None:
-        """Zero the measured counters."""
+        """Zero the measured counters (the registry families stay
+        monotonic)."""
         with self._lock:
             self._reset_counters_locked()
 

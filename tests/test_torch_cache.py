@@ -11,7 +11,8 @@ is the same on every tier and depth, by its own tests); ``n_ios +
 n_cache_hits`` stays the uncached ``n_ios``, and on disk ``records_read
 == Σ n_ios``.  The adaptive cache over 6 batches with two filter buckets
 and an LRU of one: counters' bits, partitions, hot ids, ``n_refreshes``
-and ``last_refresh_sets``.  The cost model on the same stats.  Then the
+and ``last_refresh_sets``, the LRU's evictions in the registry.  The cost
+model on the same stats.  Then the
 reference's ``test_cache.py`` and ``test_adaptive_cache.py`` on the port
 (the serving-loop case waits for the serving port; the save/load case is
 in ``test_torch_build.py``).
@@ -28,6 +29,7 @@ from repro.core import graph as jg  # noqa: E402
 from repro.store import CachedRecordStore as JCache  # noqa: E402
 from repro.store import adaptive as jadaptive  # noqa: E402
 from repro.store import cache as jcache  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.core import GateANNEngine, SearchConfig  # noqa: E402
 from repro_torch.core import pq as tpqm  # noqa: E402
 from repro_torch.kernels import l2_dist as tl2  # noqa: E402
@@ -238,13 +240,15 @@ def test_adaptive_matches_reference(tiny_engine, tiny_corpus, port, refresh_ever
     js, ts = j.record_store, t.record_store
     assert isinstance(ts, AdaptiveRecordCache)
     np.testing.assert_array_equal(ts.seed_hot_ids, js.seed_hot_ids)
+    reg = obs.MetricsRegistry(enabled=True)
     for batch in range(6):
         target = np.full(queries.shape[0], batch % 2, np.int32)
         cfg = dict(mode="gate", **SEARCH)
         want = j.search(queries, filter_kind="label", filter_params=target,
                         search_config=JConfig(**cfg))
-        got = t.search(queries, filter_kind="label", filter_params=target,
-                       search_config=SearchConfig(**cfg))
+        with obs.use_registry(reg):
+            got = t.search(queries, filter_kind="label", filter_params=target,
+                           search_config=SearchConfig(**cfg))
         ctx = f"batch {batch}"
         _same(got, want, ctx)
         np.testing.assert_array_equal(got.visit_counts.numpy(), np.asarray(want.visit_counts))
@@ -262,7 +266,8 @@ def test_adaptive_matches_reference(tiny_engine, tiny_corpus, port, refresh_ever
         np.testing.assert_array_equal(ts.store_for(bucket).hot_ids(),
                                       js.store_for(bucket).hot_ids(), err_msg=ctx)
     assert ts.n_refreshes == js.n_refreshes > 0
-    assert ts.partition_evictions == 5  # the LRU of one dropped every other bucket
+    # the LRU of one dropped every other bucket
+    assert reg.family_total("cache.partition_evictions") == 5
 
 
 def test_modeled_cost_matches_reference(tiny_engine, tiny_corpus, port):
@@ -523,18 +528,22 @@ def test_per_filter_partitions_and_lru(port, tiny_corpus):
     _, labels, queries = tiny_corpus
     eng = port.with_cache(64 * RECORD, policy="adaptive", refresh_every=0, cache_partitions=2)
     store = eng.record_store
-    for target in (0, 1, 2, 3):
-        _search(eng, queries[:4], target=target)
-    assert set(store.partitions) == {("label", 2), ("label", 3)}
-    assert store.partition_evictions == 2
-    store.refresh()
-    for (kind, tgt), part in store.partitions.items():
-        assert (np.asarray(labels)[part.counts.numpy() > 0] == tgt).all()
-        assert isinstance(part.store, CachedRecordStore)
-    assert store.last_refresh_sets == 3
-    store.refresh()
+    reg = obs.MetricsRegistry(enabled=True)
+    with obs.use_registry(reg):
+        for target in (0, 1, 2, 3):
+            _search(eng, queries[:4], target=target)
+        assert set(store.partitions) == {("label", 2), ("label", 3)}
+        assert reg.family_total("cache.partition_evictions") == 2
+        store.refresh()
+        for (kind, tgt), part in store.partitions.items():
+            assert (np.asarray(labels)[part.counts.numpy() > 0] == tgt).all()
+            assert isinstance(part.store, CachedRecordStore)
+        assert store.last_refresh_sets == 3
+        store.refresh()
     assert store.last_refresh_sets == 1
-    assert store.refresh_sets == 4
+    assert reg.family_total("cache.refresh_sets") == 4
+    assert reg.family_total("cache.refreshes") == 2
+    assert reg.family_total("cache.partitions") == 2
 
 
 def test_partition_snapshot_served_after_refresh(port, tiny_corpus):
@@ -561,17 +570,18 @@ def test_filter_bucket_keys():
 def test_wrap_pads_to_fixed_slots(port):
     backing = port.record_store
     vecs, nbrs = port.vectors, backing.neighbors
-    before = CachedRecordStore.materializations.get("adaptive", 0)
-    store = CachedRecordStore.wrap(backing, vectors=vecs, neighbors=nbrs,
-                                   hot_ids=np.asarray([5, 9], np.int32), policy="adaptive",
-                                   n_slots=16, device="cpu")
-    assert tuple(store.cache_vectors.shape) == (16, vecs.shape[1])
-    assert store.n_cached == 2 and store.hot_ids().tolist() == [5, 9]
-    store2 = CachedRecordStore.wrap(backing, vectors=vecs, neighbors=nbrs,
-                                    hot_ids=np.arange(32, dtype=np.int32), policy="adaptive",
-                                    n_slots=16, device="cpu")
+    reg = obs.MetricsRegistry(enabled=True)
+    with obs.use_registry(reg):
+        store = CachedRecordStore.wrap(backing, vectors=vecs, neighbors=nbrs,
+                                       hot_ids=np.asarray([5, 9], np.int32), policy="adaptive",
+                                       n_slots=16, device="cpu")
+        assert tuple(store.cache_vectors.shape) == (16, vecs.shape[1])
+        assert store.n_cached == 2 and store.hot_ids().tolist() == [5, 9]
+        store2 = CachedRecordStore.wrap(backing, vectors=vecs, neighbors=nbrs,
+                                        hot_ids=np.arange(32, dtype=np.int32), policy="adaptive",
+                                        n_slots=16, device="cpu")
     assert store2.n_cached == 16 and tuple(store2.cache_vectors.shape) == (16, vecs.shape[1])
-    assert CachedRecordStore.materializations["adaptive"] == before + 2
+    assert reg.family_total("cache.materializations", policy="adaptive") == 2
 
 
 def test_sub_record_budget_leaves_adaptive_off(port, tiny_corpus):

@@ -14,7 +14,10 @@ the edge of its route), the fused round on all 11 fields (the merge's edges
 included), the top-k merge on its three routes and at the contract's edges, and
 whole searches card vs CPU — on the memory tier and off an index file on
 the disk tier, synchronous and pipelined, and under scripted degraded
-reads.  Within ``expanded_tolerance``: the expanded L2 form.  The input
+reads; a serving front end on the card (searches on its dispatcher thread)
+equal to direct search; the stats hook on card tensors equal to the CPU's;
+and a telemetry-off batch launching what the bare loop launches.  Within
+``expanded_tolerance``: the expanded L2 form.  The input
 generators are shared with ``tests/test_torch_kernels.py`` and
 ``tests/test_torch_rerank.py``.
 """
@@ -27,6 +30,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import GateANNEngine, SearchConfig  # noqa: E402
 from repro_torch.core import pq as tpqm  # noqa: E402
+from repro_torch.core import search as tsearch  # noqa: E402
 from repro_torch.data import make_bigann_like, make_queries, uniform_labels  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_traversal as tft  # noqa: E402
@@ -761,3 +765,105 @@ def test_card_build_vamana_equals_cpu(cuda):
                              torch.from_numpy(q), search_l=24, beam_width=4)
     for g, w in zip(a, b):
         assert torch.equal(g.cpu(), w)
+
+
+# ------------------------------------------------------ serving and telemetry
+def device_launches(fn) -> int:
+    """Device kernel launches of one call of ``fn``, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+
+
+def bare_search(eng, q, kind, params, cfg):
+    """``engine.search``'s loop call without the engine's telemetry hooks:
+    what an uncached memory-tier search launched before the hooks."""
+    q = torch.as_tensor(q, dtype=torch.float32, device=eng.device).contiguous()
+    return tsearch.filtered_search(
+        store=eng.record_store, neighbor_store=eng.neighbor_store,
+        filter_check=eng.make_filter(kind, params), lut=tpqm.build_lut(eng.codec, q),
+        codes=eng.codes, entry=torch.tensor(eng.medoid, dtype=torch.int32, device=eng.device),
+        queries=q, config=cfg)
+
+
+def test_card_serve_frontend_equals_direct_search(cuda, tmp_path):
+    """A front end over a card engine runs its searches on the dispatcher
+    thread: every served id list equals the same engine's direct search,
+    on the memory tier and on the pipelined disk tier (drift 0)."""
+    from repro_torch.serve import RAGServer, ServeFrontend, TenantSpec
+
+    x, path = disk_index(tmp_path)
+    q = make_queries(x, 24, seed=1)
+    cfg = SearchConfig(mode="gate", search_l=24, beam_width=4)
+    for tier, depth in (("memory", 1), ("disk", 2)):
+        eng = GateANNEngine.load(path, device=cuda, store_tier=tier)
+        rag = RAGServer(engine=eng, passage_tokens=np.zeros((x.shape[0], 4), np.int32),
+                        search_config=SearchConfig(mode="gate", search_l=24, beam_width=4,
+                                                   pipeline_depth=depth),
+                        bucket_sizes=(4, 8))
+        tenants = [TenantSpec(f"t{i}", "label", np.int32(i)) for i in range(3)]
+        with ServeFrontend(rag, tenants, max_batch=8, batch_window_s=0.002,
+                           fault_policy="retry_then_degrade") as srv:
+            handles = [(i % 3, i, srv.submit(f"t{i % 3}", q[i])) for i in range(q.shape[0])]
+            served = {(t, i): h.result(timeout=120.0) for t, i, h in handles}
+            rep = srv.io_report()
+        assert rep["completed"] == q.shape[0] and rep["failed"] == 0
+        for (t, i), ids in served.items():
+            want = eng.search(q[i:i + 1], filter_kind="label",
+                              filter_params=np.asarray([t], np.int32), search_config=cfg)
+            np.testing.assert_array_equal(ids, want.ids[0].cpu().numpy(), err_msg=str((tier, t, i)))
+        if tier == "disk":
+            assert rep["reconcile_drift"] == 0 and rep["abandoned_tokens"] == 0
+            eng.measured_store().close()
+
+
+def test_card_record_search_stats_equals_cpu(cuda):
+    """record_search_stats of stats on the card == of the same stats on the
+    CPU (one stacked copy to the host)."""
+    from repro_torch import obs
+    from repro_torch.core.search import SearchStats
+
+    rng = np.random.default_rng(0)
+    host = SearchStats(*(torch.from_numpy(rng.integers(0, 40, size=33).astype(np.int32))
+                         for _ in SearchStats._fields))
+    card = SearchStats(*(t.to(cuda) for t in host))
+    regs = [obs.MetricsRegistry(enabled=True) for _ in range(2)]
+    got = obs.stats.record_search_stats(regs[0], card, mode="gate", tier="disk")
+    want = obs.stats.record_search_stats(regs[1], host, mode="gate", tier="disk")
+    assert got == want and regs[0].snapshot() == regs[1].snapshot()
+
+
+def test_card_telemetry_off_launches_what_it_did(cuda):
+    """With telemetry off a gate batch launches on the device exactly what
+    the loop alone launches (the search as it was before the hooks); with
+    it on, the same kernels of the port, and the stats copy on top."""
+    from repro_torch import obs
+
+    x = make_bigann_like(3000, 32, seed=0)
+    xt = torch.from_numpy(x)
+    nbrs = torch.topk(torch.cdist(xt, xt), 13, largest=False).indices[:, 1:].int().numpy()
+    codes = np.random.default_rng(1).integers(0, 256, size=(3000, 8)).astype(np.int32)
+    books = np.random.default_rng(2).random((8, 256, 4)).astype(np.float32) * 255
+    eng = GateANNEngine.from_arrays(x, nbrs, books, codes, 0,
+                                    {"label": uniform_labels(3000, 10, seed=0)}, device=cuda)
+    q = make_queries(x, 16, seed=1)
+    targets = np.arange(16, dtype=np.int32) % 10
+    cfg = SearchConfig(mode="gate", search_l=24, beam_width=4)
+    kw = dict(filter_kind="label", filter_params=targets, search_config=cfg)
+    eng.search(q, **kw)  # warm-up: kernels built and loaded
+    off_reg, on_reg = obs.MetricsRegistry(enabled=False), obs.MetricsRegistry(enabled=True)
+    counts = {}
+    for name, reg in (("off", off_reg), ("on", on_reg)):
+        with obs.use_registry(reg):
+            _build.reset_launches()
+            counts[name] = (device_launches(lambda: eng.search(q, **kw)), dict(_build.LAUNCHES))
+    bare = device_launches(lambda: bare_search(eng, q, "label", targets, cfg))
+    assert counts["off"][0] == bare
+    assert counts["on"][1] == counts["off"][1] and counts["off"][1]["pq_lookup"] > 0
+    assert counts["on"][0] > counts["off"][0]  # the stats stack, on the card
+    assert on_reg.family_total("search.queries") == 16

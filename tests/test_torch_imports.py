@@ -37,7 +37,8 @@ GUARD = textwrap.dedent("""
     print(" ".join(names))
 """)
 
-# modules the port must hold: the disk tier, the kernels, the build and the cache tiers
+# modules the port must hold: the disk tier, the kernels, the build, the cache
+# tiers, telemetry and retrieval serving
 EXPECTED = {
     "repro_torch.core.engine", "repro_torch.core.search", "repro_torch.core.pq",
     "repro_torch.core.io_model", "repro_torch.core.graph",
@@ -47,6 +48,9 @@ EXPECTED = {
     "repro_torch.kernels.ops", "repro_torch.kernels.topk_merge",
     "repro_torch.kernels.pq_lookup", "repro_torch.kernels.l2_dist",
     "repro_torch.kernels.fused_traversal",
+    "repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.tracer",
+    "repro_torch.obs.stats", "repro_torch.obs.export",
+    "repro_torch.serve", "repro_torch.serve.rag", "repro_torch.serve.server",
 }
 
 
@@ -57,7 +61,7 @@ def test_port_imports_neither_jax_nor_repro():
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 26 and EXPECTED <= names, sorted(EXPECTED - names)
+    assert len(names) >= 37 and EXPECTED <= names, sorted(EXPECTED - names)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
