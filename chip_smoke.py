@@ -34,6 +34,18 @@ the card.  Phases, each printing its own lines:
      computed on the card, each round's stage B one re-rank launch; then
      one batch with K + W past the re-rank kernel's limit (the standalone
      L2 kernel and the plain merge), its first 10 results equal to K = 10;
+  dist. distributed search (``core/distributed_search.py``) on the same
+     index and queries: ``spawn_local`` starts 4 ranks on the one card, a
+     (data = 1, model = 4) mesh over gloo on CUDA tensors; each rank reads
+     the replicated sections (PQ, the first r_max adjacency columns,
+     labels) and only its own quarter of the records; gate and post at
+     L = 64, W = 8, K = 10 with ``n_hops`` = phase 4's most rounds and a
+     ring that never wraps; ids, distances, n_ios and n_tunnels equal
+     phase 4's unfused gate and post bit for bit, and so do a (2, 2) mesh
+     and a 1-rank nccl world; batch p50/p99, QPS, the all_reduce's share
+     of a batch, collective bytes a round and each rank's device bytes;
+     one nccl batch a mode under torch.profiler, the device time of the
+     ring, the fetch, the ADC and the re-rank apart;
   5. the same queries off the index file (``store_tier="disk"``), the page
      cache dropped before each: gate at depth 1, gate unfused and fused at
      depth 4 and post at depth 4, each equal to the memory tier bit for
@@ -104,6 +116,7 @@ from repro_torch.kernels import l2_dist as l2k  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import pq_lookup as pqk  # noqa: E402
 from repro_torch.kernels import topk_merge as tkk  # noqa: E402
+from repro_torch.launch import spawn_local  # noqa: E402
 from repro_torch.serve import RAGServer, ServeFrontend, TenantSpec  # noqa: E402
 from repro_torch.store.adaptive import AdaptiveRecordCache  # noqa: E402
 from repro_torch.store.cache import record_nbytes  # noqa: E402
@@ -131,6 +144,9 @@ SCAN_BATCH, SCAN_CHUNK = 64, 1000  # brute-force scan: queries a batch, top-k ch
 SERVE = dict(mode="gate", search_l=50, beam_width=8, result_k=10)
 SERVE_DEPTH, SERVE_BUCKETS, SERVE_CACHE_FRACTION = 2, (8, 16, 32), 0.01
 SERVE_TENANTS, SERVE_CLIENTS, SERVE_ALPHA, SERVE_EIO = 4, 8, 1.1, 0.005
+# the dist phase: the ring buffer's size (B x cap int32 = 64 MiB a rank) and
+# the deadline of one mesh's run, process start and file reads included
+DIST_CAP, DIST_TIMEOUT_S = 65_536, 300
 REPO = Path(__file__).resolve().parent
 
 
@@ -788,12 +804,240 @@ def search_phase(eng, q, targets, gt, card: str, cap: Capture) -> dict:
         f"mean n_ios {summary['gate_L256']['n_ios']:.2f} n_hops {summary['gate_L256']['n_hops']:.2f} "
         f"QPS {summary['gate_L256']['qps']:.1f} on {card}")
     for name in ("gate_unfused", "gate_fused"):
-        summary[name]["profile"] = profile_batch(eng, q[:BATCH], targets[:BATCH], configs[name],
-                                                 summary[name]["p50_batch_ms"])
+        summary[name]["profile"] = profile_batch(
+            lambda: eng.search(q[:BATCH], filter_kind="label", filter_params=targets[:BATCH],
+                               search_config=configs[name]), summary[name]["p50_batch_ms"])
         log("profile", f"{name}, one batch of {BATCH} under torch.profiler on {card}: "
             + json.dumps(summary[name]["profile"]))
     print(json.dumps({"search": summary, "card": card}), flush=True)
     return {name: run[:3] for name, run in runs.items()}
+
+
+# ------------------------------------------------------------- the dist phase
+def timed_collectives() -> list:
+    """Wrap ``torch.distributed.all_reduce`` to add its host-clock seconds
+    (the card drained before and after) and its calls to the returned
+    list; for one instrumented batch, not the timed ones."""
+    real = torch.distributed.all_reduce
+    spent = [0.0, 0]
+
+    def timed(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return out
+
+    torch.distributed.all_reduce = timed
+    return spent
+
+
+def labelled(owner, name: str, label: str):
+    """Wrap ``owner.name`` in a ``record_function`` range ``label``;
+    returns the unwrapped function."""
+    real = getattr(owner, name)
+
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return real(*args, **kwargs)
+
+    setattr(owner, name, run)
+    return real
+
+
+def dist_rank(mesh, path: str, inputs: str, n_hops: int, profile: bool = False) -> dict:
+    """One rank of the dist phase: the replicated sections and only this
+    rank's record rows onto the card, then the queries of ``inputs`` in
+    batches of BATCH, gate then post, each batch's rows split over
+    ``data``.  Returns, per mode, the outputs of the rows this rank
+    served, each batch's latency and the mode's kernel launches (counted
+    from 0 just before its timed batches) with its plain merges; then one
+    batch more with each all_reduce timed alone; with ``profile``, last,
+    one batch a mode under ``torch.profiler`` with the step's parts in
+    ranges of their own."""
+    from repro_torch.core import distributed_search as tds
+    from repro_torch.store import ShardedRecordStore, read_index
+
+    torch.set_num_threads(1)
+    watch_plain_merges()
+    dev, shard = mesh.device, mesh.index("model")
+    t0 = time.perf_counter()
+    idx = read_index(path)
+    books = torch.tensor(idx.pq_books(), device=dev)
+    codec = pqm.PQCodec(books, int(books.shape[0]), int(books.shape[1]))
+    codes = torch.tensor(idx.pq_codes(), device=dev)
+    nbr_store = torch.tensor(np.ascontiguousarray(idx.neighbors()[:, :R_MAX]), device=dev)
+    labels = torch.tensor(idx.filter_array("label"), device=dev)
+    entry = torch.tensor(idx.header.medoid, dtype=torch.int32, device=dev)
+    vecs, graph, rows = tds.load_shard_records(path, shard, n_shards=mesh.size("model"))
+    rec_vecs, rec_graph = torch.tensor(vecs, device=dev), torch.tensor(graph, device=dev)
+    del vecs, graph
+    data = np.load(inputs)
+    q_all = torch.tensor(data["q"], device=dev)
+    t_all = torch.tensor(data["targets"], device=dev)
+    torch.cuda.synchronize()
+    out = {"load_s": time.perf_counter() - t0, "coords": mesh.coords,
+           "device_bytes": {"records": rec_vecs.nbytes + rec_graph.nbytes, "codes": codes.nbytes,
+                            "neighbor_store": nbr_store.nbytes, "labels": labels.nbytes}}
+    bs = tds.batch_slice(mesh, BATCH)
+
+    def batch(step, s):
+        q = q_all[s:s + BATCH][bs].contiguous()
+        return step(q, pqm.build_lut(codec, q), codes, nbr_store, labels, rec_vecs, rec_graph,
+                    entry, t_all[s:s + BATCH][bs].contiguous())
+
+    for mode in ("gate", "post"):
+        cfg = tds.DistSearchConfig(mode=mode, **SEARCH, n_hops=n_hops, visited_cap=DIST_CAP)
+        step = tds.make_retrieve_step(mesh, cfg, rows_per_shard=rows)
+        batch(step, 0)  # warm-up, untimed
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        PLAIN_MERGES[0] = 0
+        res, lat = [], []
+        for s in range(0, q_all.shape[0], BATCH):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = batch(step, s)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t1)
+            res.append({k: v.cpu().numpy() for k, v in r.items()})
+        out[mode] = {k: np.concatenate([r[k] for r in res]) for k in res[0]}
+        out[mode]["lat"] = np.asarray(lat)
+        out[mode]["launches"] = {**_build.LAUNCHES, "plain_merges": PLAIN_MERGES[0]}
+        real = torch.distributed.all_reduce
+        spent = timed_collectives()
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            batch(step, 0)
+            torch.cuda.synchronize()
+            out[mode]["instrumented"] = {"batch_s": time.perf_counter() - t1,
+                                         "all_reduce_s": spent[0], "all_reduce_calls": spent[1]}
+        finally:
+            torch.distributed.all_reduce = real
+    if profile:  # last: CUPTI's callbacks slow later host calls
+        parts = ((tds, "ring_membership"), (tds, "push_visited"), (ShardedRecordStore, "fetch"),
+                 (pqk, "adc_ids"), (l2k, "rerank"))
+        reals = [labelled(o, n, n) for o, n in parts]
+        try:
+            for mode in ("gate", "post"):
+                cfg = tds.DistSearchConfig(mode=mode, **SEARCH, n_hops=n_hops,
+                                           visited_cap=DIST_CAP)
+                step = tds.make_retrieve_step(mesh, cfg, rows_per_shard=rows)
+                out[mode]["profile"] = profile_batch(
+                    lambda: batch(step, 0), float(np.percentile(out[mode]["lat"], 50) * 1e3),
+                    parts=tuple(n for _, n in parts))
+        finally:
+            for (o, n), real in zip(parts, reals):
+                setattr(o, n, real)
+    out["rows"] = np.concatenate([np.arange(s + bs.start, s + bs.stop)
+                                  for s in range(0, q_all.shape[0], BATCH)])
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def dist_merge(ranks: list, mode: str, n: int) -> dict:
+    """A mode's outputs over all queries, each row from the ranks that
+    served it, after checking that those ranks agree bit for bit."""
+    merged = {}
+    for r in ranks:
+        for k in ("ids", "dists", "n_ios", "n_tunnels"):
+            v = r[mode][k]
+            if k not in merged:
+                merged[k] = np.zeros((n, *v.shape[1:]), v.dtype)
+                merged[k + "_seen"] = np.zeros(n, bool)
+            seen = merged[k + "_seen"][r["rows"]]
+            require(np.array_equal(merged[k][r["rows"]][seen].view(np.int32),
+                                   v[seen].view(np.int32)),
+                    f"dist {mode}: ranks serving the same rows disagree on {k}")
+            merged[k][r["rows"]] = v
+            merged[k + "_seen"][r["rows"]] = True
+    for k in ("ids", "dists", "n_ios", "n_tunnels"):
+        require(bool(merged.pop(k + "_seen").all()), f"dist {mode}: rows without an answer")
+    return merged
+
+
+def dist_phase(tmp: str, path: str, q, targets, mem_runs: dict, card: str, cap: Capture) -> None:
+    """Distributed search on the one card: 4 gloo ranks with the records
+    split over ``model`` (each reads only its own rows of the index file),
+    equal bit for bit to phase 4's unfused gate and post; a (2, 2) mesh
+    and a 1-rank nccl world equal to it."""
+    rounds = {m: int(mem_runs[name][2]["n_hops"].max())
+              for m, name in (("gate", "gate_unfused"), ("post", "post"))}
+    n_hops = max(rounds.values())
+    m = SEARCH["beam_width"] * (DEGREE + R_MAX)
+    require(1 + n_hops * m <= DIST_CAP, "dist: the ring could wrap")
+    log("dist", f"n_hops {n_hops} (phase 4's rounds a batch at most: gate {rounds['gate']}, "
+        f"post {rounds['post']}); visited_cap {DIST_CAP:,} ({BATCH * DIST_CAP * 4 / 2**20:.0f} "
+        f"MiB a rank at B={BATCH}) >= 1 + n_hops * M = {1 + n_hops * m:,}: the ring never wraps")
+    inputs = os.path.join(tmp, "dist_queries.npz")
+    np.savez(inputs, q=q.cpu().numpy(), targets=targets.cpu().numpy())
+    n = q.shape[0]
+    summary = {}
+    for name, shape, backend in (("dist_1x4", (1, 4), "gloo"), ("dist_2x2", (2, 2), "gloo"),
+                                 ("dist_nccl_1x1", (1, 1), "nccl")):
+        t0 = time.perf_counter()
+        ranks = spawn_local(dist_rank, shape, backend=backend, device="cuda:0",
+                            timeout_s=DIST_TIMEOUT_S,
+                            args=(path, inputs, n_hops, backend == "nccl"))
+        wall = time.perf_counter() - t0
+        cap.launches[name] = {}
+        for r in ranks:
+            for mode in ("gate", "post"):
+                for k, v in r[mode]["launches"].items():
+                    cap.launches[name][k] = cap.launches[name].get(k, 0) + v
+        require_launches(cap, name, ("pq_lookup", "rerank"),
+                         ("fused_traversal", "l2_dist", "plain_merges"))
+        for mode, base in (("gate", "gate_unfused"), ("post", "post")):
+            got, want = dist_merge(ranks, mode, n), mem_runs[base]
+            for i, k in enumerate(("ids", "dists")):
+                same(torch.from_numpy(got[k]), want[i].cpu(), f"{name} {mode} {k} vs phase 4")
+            for k in ("n_ios", "n_tunnels"):
+                same(torch.from_numpy(got[k]), want[2][k].cpu(), f"{name} {mode} {k} vs phase 4")
+        lat = ranks[0]["gate"]["lat"], ranks[0]["post"]["lat"]
+        row = {"mesh": dict(zip(("data", "model"), shape)), "backend": backend,
+               "spawn_to_join_s": wall, "load_s": max(r["load_s"] for r in ranks),
+               "launches": cap.launches[name],
+               "max_memory_allocated_per_rank": [r["max_memory_allocated"] for r in ranks],
+               "device_bytes_rank0": ranks[0]["device_bytes"]}
+        for mode, la in zip(("gate", "post"), lat):
+            inst = ranks[0][mode]["instrumented"]
+            row[mode] = {"p50_batch_ms": float(np.percentile(la, 50) * 1e3),
+                         "p99_batch_ms": float(np.percentile(la, 99) * 1e3),
+                         "ms_a_round": float(np.percentile(la, 50) * 1e3) / n_hops,
+                         "qps": n / float(la.sum()),
+                         "mean_n_ios": float(dist_merge(ranks, mode, n)["n_ios"].mean()),
+                         "all_reduce_share": inst["all_reduce_s"] / inst["batch_s"],
+                         "all_reduce_ms": inst["all_reduce_s"] / inst["all_reduce_calls"] * 1e3}
+        b_rank = BATCH // shape[0]
+        row["collective_bytes_a_round"] = b_rank * SEARCH["beam_width"] * (DIM + DEGREE) * 4
+        summary[name] = row
+        log("dist", f"{name} ({backend}, data={shape[0]} model={shape[1]}): gate and post == "
+            f"phase 4's unfused gate and post (ids, dists, n_ios, n_tunnels, bit for bit); "
+            f"launches {json.dumps(row['launches'])} over both modes' {2 * n // BATCH} batches, "
+            f"all ranks; spawn to join {wall:.1f} s, loads {row['load_s']:.1f} s on {card}")
+        for mode in ("gate", "post"):
+            r = row[mode]
+            log("dist", f"{name} {mode}: batch p50 {r['p50_batch_ms']:.1f} ms p99 "
+                f"{r['p99_batch_ms']:.1f} ms ({r['ms_a_round']:.2f} ms a round), QPS "
+                f"{r['qps']:.1f}, mean n_ios {r['mean_n_ios']:.2f}; rank 0's instrumented batch: "
+                f"all_reduce {r['all_reduce_share']:.1%} of its host clock, "
+                f"{r['all_reduce_ms']:.2f} ms a call; {row['collective_bytes_a_round']:,} collective "
+                f"bytes a round a rank (B={b_rank} W={SEARCH['beam_width']} D+R={DIM + DEGREE}) "
+                f"on {card}")
+        for mode in ("gate", "post") if backend == "nccl" else ():
+            row[mode]["profile"] = ranks[0][mode]["profile"]
+            log("profile", f"{name} {mode}, one batch of {BATCH} under torch.profiler on {card}: "
+                + json.dumps(row[mode]["profile"]))
+        log("dist", f"{name} device bytes a rank: {json.dumps(row['device_bytes_rank0'])} "
+            f"(rank 0); max allocated {[f'{b / 2**20:.0f} MiB' for b in row['max_memory_allocated_per_rank']]}")
+    require(summary["dist_1x4"]["gate"]["mean_n_ios"] < summary["dist_1x4"]["post"]["mean_n_ios"],
+            "dist: gate's mean n_ios is not below post's")
+    log("dist", "the (2, 2) mesh and the 1-rank nccl world == the (1, 4) mesh == phase 4")
+    print(json.dumps({"dist": summary, "n_hops": n_hops, "phase4_rounds": rounds,
+                      "visited_cap": DIST_CAP, "card": card}), flush=True)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -885,8 +1129,9 @@ def ssd_phase(path: str, q, targets, mem_runs: dict, card: str, cap: Capture) ->
         log("ssd", f"{name} again, page cache not dropped: QPS {summary[name]['warm_qps']:.1f} "
             f"(cold {summary[name]['qps']:.1f}) on {card}")
     for name, (cfg, _) in configs.items():  # warm page cache now: kernel time over the cold p50
-        summary[name]["profile"] = profile_batch(eng, q[:BATCH], targets[:BATCH], cfg,
-                                                 summary[name]["p50_batch_ms"])
+        summary[name]["profile"] = profile_batch(
+            lambda: eng.search(q[:BATCH], filter_kind="label", filter_params=targets[:BATCH],
+                               search_config=cfg), summary[name]["p50_batch_ms"])
         log("profile", f"{name}, one batch of {BATCH} under torch.profiler on {card}: "
             + json.dumps(summary[name]["profile"]))
     print(json.dumps({"ssd": summary, "card": card}), flush=True)
@@ -1334,33 +1579,42 @@ def scan_phase(eng, q, targets, gt, card: str, cap: Capture) -> None:
         f"{json.dumps(cap.launches['pq_scan_topk'])}; first batch == plain versions on {card}")
 
 
-def profile_batch(eng, q, targets, cfg, p50_ms: float, top: int = 8) -> dict:
+def profile_batch(run, p50_ms: float, top: int = 8, parts: tuple = ()) -> dict:
     """Where one batch's time goes, from ``torch.profiler``: summed kernel
-    time on the card and the kernels with the most device time.  The busy
-    share divides the kernel time by the path's unprofiled p50 batch
-    latency ``p50_ms``; the profiled wall time is inflated by the
-    profiler's own host cost, so the share of it is reported apart."""
+    time on the card and the kernels with the most device time, for one
+    call of ``run()``.  The busy share divides the kernel time by the
+    path's unprofiled p50 batch latency ``p50_ms``; the profiled wall time
+    is inflated by the profiler's own host cost, so the share of it is
+    reported apart.  ``parts`` names ``record_function`` ranges that
+    ``run`` opens: the device time of the kernels each launched."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.search(q, filter_kind="label", filter_params=targets, search_config=cfg)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    per_kernel = {}  # kernels whose names share their first 60 characters are summed
+    per_kernel, per_part = {}, {}  # kernels whose names share their first 60 characters are summed
     for e in prof.key_averages():
+        if e.key in parts:  # a range, not a kernel: its host event holds its kernels' time
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                per_part[e.key] = [round(e.device_time_total / 1e3, 4), e.count]
+            continue
         us = e.self_device_time_total
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:  # kernels, not host ops
             ms, n = per_kernel.get(e.key[:60], (0.0, 0))
             per_kernel[e.key[:60]] = (ms + us / 1e3, n + e.count)
     busy_ms = sum(ms for ms, _ in per_kernel.values())
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms, "unprofiled_p50_ms": p50_ms,
-            "device_launches": sum(n for _, n in per_kernel.values()),
-            "device_busy_share": busy_ms / p50_ms if busy_ms else None,
-            "busy_share_of_profiled_wall": busy_ms / wall_ms if busy_ms else None,
-            "top_kernels_ms_calls": {k: [round(ms, 4), n] for k, (ms, n) in ranked}}
+    out = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms, "unprofiled_p50_ms": p50_ms,
+           "device_launches": sum(n for _, n in per_kernel.values()),
+           "device_busy_share": busy_ms / p50_ms if busy_ms else None,
+           "busy_share_of_profiled_wall": busy_ms / wall_ms if busy_ms else None,
+           "top_kernels_ms_calls": {k: [round(ms, 4), n] for k, (ms, n) in ranked}}
+    if parts:
+        out["parts_device_ms_calls"] = per_part
+    return out
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1736,6 +1990,7 @@ def main(argv=None) -> int:
         gt = ground_truth(x, torch.from_numpy(index["labels"]).to(dev), q, targets)
         del index, x
         mem_runs = search_phase(eng, q, targets, gt, card, cap)
+        dist_phase(tmp, path, q, targets, mem_runs, card, cap)
         ssd_phase(path, q, targets, mem_runs, card, cap)
         cache_phase(eng, path, q, targets, mem_runs, card, cap)
         serve_phase(eng, path, q, targets, card, cap)

@@ -181,15 +181,21 @@ def _filter_arrays(filters: dict) -> dict:
 def _store_neighbors(store, expected_n: int | None = None):
     """Full adjacency of a record store, whatever its tier: a device tensor
     (memory tier), a host tensor (host tier) or the sidecar's host view
-    (disk tier).  ``expected_n`` refuses a store that does not cover the
-    corpus."""
+    (disk tier).  The sharded tier has only its ``local_neighbors`` rows,
+    which serve only when they cover the whole corpus: ``expected_n``
+    refuses a store that does not (a partial shard's rows are one block of
+    the corpus, not all of it)."""
     nbrs = getattr(store, "neighbors", None)
     if nbrs is None:
-        raise TypeError(f"record store {type(store).__name__} exposes no adjacency (neighbors)")
+        nbrs = getattr(store, "local_neighbors", None)
+    if nbrs is None:
+        raise TypeError(f"record store {type(store).__name__} exposes no adjacency "
+                        "(neighbors / local_neighbors)")
     if expected_n is not None and int(nbrs.shape[0]) != int(expected_n):
         raise ValueError(
             f"record store {type(store).__name__} holds {int(nbrs.shape[0])} adjacency "
-            f"rows but the corpus has {int(expected_n)}")
+            f"rows but the corpus has {int(expected_n)} — a partial (sharded) backing "
+            "cannot be wrapped here")
     return nbrs
 
 

@@ -22,7 +22,12 @@ from repro_torch.store.format import (
     record_sector_bytes,
     write_index,
 )
-from repro_torch.store.vector_store import HostOffloadRecordStore, InMemoryRecordStore, is_lazy_host
+from repro_torch.store.vector_store import (
+    HostOffloadRecordStore,
+    InMemoryRecordStore,
+    ShardedRecordStore,
+    is_lazy_host,
+)
 
 __all__ = [
     "ADAPTIVE_POLICY",
@@ -53,5 +58,6 @@ __all__ = [
     "write_index",
     "HostOffloadRecordStore",
     "InMemoryRecordStore",
+    "ShardedRecordStore",
     "is_lazy_host",
 ]

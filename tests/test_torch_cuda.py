@@ -16,7 +16,10 @@ whole searches card vs CPU — on the memory tier and off an index file on
 the disk tier, synchronous and pipelined, and under scripted degraded
 reads; a serving front end on the card (searches on its dispatcher thread)
 equal to direct search; the stats hook on card tensors equal to the CPU's;
-and a telemetry-off batch launching what the bare loop launches.  Within
+a telemetry-off batch launching what the bare loop launches; and a 2-rank
+gloo mesh on the card running the distributed step (sharded fetch through
+gloo on CUDA tensors, the ADC and re-rank kernels once a hop) equal to the
+same mesh on the CPU and to the single-host search.  Within
 ``expanded_tolerance``: the expanded L2 form.  The input
 generators are shared with ``tests/test_torch_kernels.py`` and
 ``tests/test_torch_rerank.py``.
@@ -867,3 +870,80 @@ def test_card_telemetry_off_launches_what_it_did(cuda):
     assert counts["on"][1] == counts["off"][1] and counts["off"][1]["pq_lookup"] > 0
     assert counts["on"][0] > counts["off"][0]  # the stats stack, on the card
     assert on_reg.family_total("search.queries") == 16
+
+
+# ------------------------------------------------------- distributed search
+DIST_SEARCH = dict(search_l=24, beam_width=4, result_k=10, n_hops=48, visited_cap=4096)
+DIST_RANKS = 2
+
+
+def dist_rank(mesh, path):
+    """One rank of a (1, 2) gloo mesh on ``mesh.device``: a sharded fetch
+    beside the in-memory one, and the retrieve step in gate and post with
+    each step's kernel launches.  Every input is made on the CPU."""
+    from repro_torch.core import distributed_search as tds
+    from repro_torch.store import InMemoryRecordStore, ShardedRecordStore, read_index
+
+    torch.set_num_threads(1)
+    dev, shard = mesh.device, mesh.index("model")
+    idx = read_index(path)
+    x, nbrs = idx.vectors(), idx.neighbors()
+    q = torch.from_numpy(make_queries(x, 16, seed=1))
+    books = torch.tensor(idx.pq_books())
+    lut = tpqm.build_lut(tpqm.PQCodec(books, books.shape[0], books.shape[1]), q)
+    vecs, graph, rows = tds.load_shard_records(path, shard, n_shards=mesh.size("model"))
+
+    def on(a):
+        return torch.tensor(np.ascontiguousarray(a), device=dev)
+
+    args = (q.to(dev), lut.to(dev), on(idx.pq_codes()), on(nbrs[:, :8]),
+            on(idx.filter_array("label")), on(vecs), on(graph), on(np.int32(idx.header.medoid)),
+            on(np.arange(16, dtype=np.int32) % 10))
+    ids = on(np.random.default_rng(3).integers(-1, x.shape[0], size=(16, 4)).astype(np.int32))
+    got = ShardedRecordStore(on(vecs), on(graph), rows, mesh.group("model")).fetch(ids)
+    want = InMemoryRecordStore(torch.from_numpy(x), torch.from_numpy(nbrs)).fetch(ids.cpu())
+    out = {"fetch_equal": all(torch.equal(g.cpu(), w) for g, w in zip(got, want))}
+    for mode in ("gate", "post"):
+        step = tds.make_retrieve_step(mesh, tds.DistSearchConfig(mode=mode, **DIST_SEARCH),
+                                      rows_per_shard=rows)
+        _build.reset_launches()
+        res = step(*args)
+        out[mode] = {k: v.cpu().numpy() for k, v in res.items()}
+        out[mode]["launches"] = dict(_build.LAUNCHES)
+    return out
+
+
+def test_card_distributed_step_equals_cpu(cuda, tmp_path):
+    """A 2-rank gloo mesh on the one card against the same mesh on the
+    CPU: the sharded fetch moves CUDA tensors through gloo and equals the
+    in-memory fetch; the step's ids, distances and counters are the same
+    bits on both and equal the single-host search on the card; each rank
+    launches the ADC once a hop plus the entry's, the re-rank once a hop."""
+    from repro_torch.launch import spawn_local
+
+    _, path = disk_index(tmp_path)
+    on_card, on_cpu = (spawn_local(dist_rank, (1, DIST_RANKS), backend="gloo", device=dev,
+                                   timeout_s=300, args=(path,)) for dev in (str(cuda), "cpu"))
+    eng = GateANNEngine.load(path, device=cuda)
+    x = read_vectors(path)
+    hops = DIST_SEARCH["n_hops"]
+    for card, cpu in zip(on_card, on_cpu):
+        assert card["fetch_equal"] and cpu["fetch_equal"]
+        for mode in ("gate", "post"):
+            for k in ("ids", "dists", "n_ios", "n_tunnels"):
+                np.testing.assert_array_equal(card[mode][k], cpu[mode][k], err_msg=(mode, k))
+            want = eng.search(make_queries(x, 16, seed=1), filter_kind="label",
+                              filter_params=np.arange(16, dtype=np.int32) % 10,
+                              search_config=SearchConfig(mode=mode, search_l=24, beam_width=4))
+            assert int(want.stats.n_hops.max()) <= hops
+            np.testing.assert_array_equal(card[mode]["ids"], want.ids.cpu().numpy())
+            np.testing.assert_array_equal(card[mode]["dists"], want.dists.cpu().numpy())
+            np.testing.assert_array_equal(card[mode]["n_ios"], want.stats.n_ios.cpu().numpy())
+            assert card[mode]["launches"] == {"pq_lookup": hops + 1, "rerank": hops}
+            assert cpu[mode]["launches"] == {}
+
+
+def read_vectors(path):
+    from repro_torch.store import read_index
+
+    return read_index(path).vectors()

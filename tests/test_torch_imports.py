@@ -38,7 +38,7 @@ GUARD = textwrap.dedent("""
 """)
 
 # modules the port must hold: the disk tier, the kernels, the build, the cache
-# tiers, telemetry and retrieval serving
+# tiers, telemetry, retrieval serving and distributed search
 EXPECTED = {
     "repro_torch.core.engine", "repro_torch.core.search", "repro_torch.core.pq",
     "repro_torch.core.io_model", "repro_torch.core.graph",
@@ -51,6 +51,7 @@ EXPECTED = {
     "repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.tracer",
     "repro_torch.obs.stats", "repro_torch.obs.export",
     "repro_torch.serve", "repro_torch.serve.rag", "repro_torch.serve.server",
+    "repro_torch.launch", "repro_torch.launch.mesh", "repro_torch.core.distributed_search",
 }
 
 
@@ -61,7 +62,7 @@ def test_port_imports_neither_jax_nor_repro():
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 37 and EXPECTED <= names, sorted(EXPECTED - names)
+    assert len(names) >= 40 and EXPECTED <= names, sorted(EXPECTED - names)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
