@@ -5,11 +5,13 @@ Drives the port's paths — build an index, save and load it, run gated
 filtered search on the memory tier and off the index file on the disk
 tier (synchronous and pipelined), with and without a hot-record cache,
 and the brute-force PQ scan — at SIFT1M scale through the hand-written
-CUDA kernels, and holds every kernel against its plain PyTorch version on
-the card.  Phases, each printing its own lines:
+CUDA kernels, serves retrieval-augmented generation with gemma3-4b at
+full width over that index, and holds every kernel against its plain
+PyTorch version on the card.  Phases, each printing its own lines:
 
   1. device: the card's name and power limit (``nvidia-smi``), torch and
-     CUDA versions; TF32 off for matrix products and convolutions;
+     CUDA versions; TF32 off for matrix products and convolutions, and
+     bf16 products reduced in float32;
   2. kernels against their plain versions at the paths' shapes (ADC both
      entries on both routes and at their edges, the scan on both routes,
      L2 tree bit for bit and expanded within tolerance, the re-rank bit
@@ -68,6 +70,21 @@ the card.  Phases, each printing its own lines:
      disk.records_read == io_counters == search.ios{tier=disk} == served +
      padding reads, drift 0.  Last, one gate batch with telemetry off and
      on: the same kernel launches, off equal to the bare loop's;
+  lm. the LM serving path (``repro_torch.models``, ``repro_torch.serve``)
+     with gemma3-4b at full width (34 layers, 3,879,907,840 params, bf16
+     activations over float32 masters, random init from a seeded
+     ``torch.Generator("cuda")``): ``make_prefill_step`` at B = 8,
+     T = 2,048 (seconds and tokens/s beside the operations bound);
+     ``make_serve_step`` at B = 8 with bf16 caches of 2,112 for 64 steps
+     (p50/p99 beside the bf16 weights' byte bound, and the bytes the
+     per-call casts from the float32 masters move); ``RAGServer.generate``
+     of 8 labelled requests on the 1M index (gate L = 64, W = 8, K = 10,
+     32-token passages and prompts, 16 new tokens), its retrieved ids equal
+     to a direct search bit for bit and its launches counted under
+     ``rag_generate``; then (a) the float32 model's cached decode against
+     its full forward (B = 2, T = 48, within 2e-3) and (b) the card against
+     the CPU at full width cut to 6 layers (logits within 1e-4, greedy
+     tokens equal up to the first near tie);
   6. the brute-force PQ scan: every code scored by ``pq.adc_lookup``,
      filtered, top-10 by two levels of ``kernels.ops.topk_merge``;
   7. card vs CPU on a 20,000-vector index in all five modes;
@@ -117,7 +134,12 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import pq_lookup as pqk  # noqa: E402
 from repro_torch.kernels import topk_merge as tkk  # noqa: E402
 from repro_torch.launch import spawn_local  # noqa: E402
-from repro_torch.serve import RAGServer, ServeFrontend, TenantSpec  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.tokens import TokenStreamConfig, batch_at_step  # noqa: E402
+from repro_torch.models import zoo  # noqa: E402
+from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.serve import RAGRequest, RAGServer, ServeFrontend, TenantSpec  # noqa: E402
+from repro_torch.serve import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.store.adaptive import AdaptiveRecordCache  # noqa: E402
 from repro_torch.store.cache import record_nbytes  # noqa: E402
 from repro_torch.store.disk import DiskRecordStore  # noqa: E402
@@ -132,6 +154,7 @@ MODES = ("gate", "post", "early", "pre_naive", "unfiltered")
 # H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
 SPIN_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock: cycles for torch.cuda._sleep
 DIM, DEGREE, EXACT_NBRS, PQ_CHUNKS, R_MAX = 128, 64, 48, 32, 32
 BATCH, N_QUERIES, N_LABELS = 256, 1024, 10
@@ -147,6 +170,12 @@ SERVE_TENANTS, SERVE_CLIENTS, SERVE_ALPHA, SERVE_EIO = 4, 8, 1.1, 0.005
 # the dist phase: the ring buffer's size (B x cap int32 = 64 MiB a rank) and
 # the deadline of one mesh's run, process start and file reads included
 DIST_CAP, DIST_TIMEOUT_S = 65_536, 300
+# the lm phase: the model, prefill (B, T), decode (B, cache length, steps),
+# generate's requests and token counts, invariant (a)'s (B, T) and (b)'s
+# prompt and new tokens
+LM_ARCH, LM_PREFILL, LM_DECODE = "gemma3-4b", (8, 2048), (8, 2112, 64)
+LM_REQUESTS, LM_PASSAGE, LM_PROMPT, LM_NEW = 8, 32, 32, 16
+LM_PARITY_BT, LM_CPU_PROMPT, LM_CPU_NEW = (2, 48), 16, 16
 REPO = Path(__file__).resolve().parent
 
 
@@ -1350,7 +1379,8 @@ def drive_clients(srv, q_np: np.ndarray, tenants: np.ndarray):
 def serve_run(name: str, engine, cfg, q_np, tenants, cap, card: str) -> dict:
     """One front end over ``engine``: the schedule through it, its launches
     counted from 0, its report and timings."""
-    rag = RAGServer(engine=engine, passage_tokens=np.zeros((int(engine.codes.shape[0]), 4), np.int32),
+    rag = RAGServer(engine=engine, cfg=None, params=None,
+                    passage_tokens=np.zeros((int(engine.codes.shape[0]), 4), np.int32),
                     search_config=cfg, bucket_sizes=SERVE_BUCKETS)
     specs = [TenantSpec(f"t{i}", "label", np.int32(i)) for i in range(SERVE_TENANTS)]
     torch.cuda.synchronize()
@@ -1522,6 +1552,252 @@ def serve_phase(eng, path: str, q, targets, card: str, cap) -> dict:
     summary["telemetry"] = telemetry_batch(eng, q[:BATCH], targets[:BATCH], card, cap)
     print(json.dumps({"serve": summary, "card": card}), flush=True)
     return summary
+
+
+# --------------------------------------------------------------- the lm phase
+def lm_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def lm_decode(model, prompts: torch.Tensor, new: int, cache_dtype):
+    """Teacher-forced prompt, then ``new`` greedy tokens fed back, one
+    ``forward_decode`` a position (``RAGServer.generate``'s loop without
+    the retrieval); returns the tokens and every step's last logits."""
+    b, p_len = prompts.shape
+    caches = model.init_caches(b, p_len + new, cache_dtype)
+    tok, toks, steps = prompts[:, :1], [], []
+    for t in range(p_len + new - 1):
+        logits, caches = model.forward_decode(tok, caches, t)
+        steps.append(logits[:, 0])
+        if t + 1 < p_len:
+            tok = prompts[:, t + 1:t + 2]
+        else:
+            tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+            toks.append(tok[:, 0])
+    return torch.stack(toks, dim=1), torch.stack(steps, dim=1)
+
+
+def lm_invariants(cfg, dev, card: str) -> dict:
+    """(a) the decode path against the full forward at full width in
+    float32; (b) the card against the CPU at full width, depth cut to one
+    pattern unit, float32."""
+    out = {}
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    model = zoo.init_params(f32, torch.Generator("cuda").manual_seed(0), device=dev)
+    b, t = LM_PARITY_BT
+    toks = torch.from_numpy(batch_at_step(TokenStreamConfig(cfg.vocab_size, t, b, seed=2), 0)
+                            ["tokens"]).to(dev)
+    hidden, _ = model.forward_hidden(toks)
+    with torch.inference_mode():
+        full = model.logits(hidden)
+    _, dec = lm_decode(model, toks, 1, torch.float32)  # the prompt's logits, step by step
+    err = float((dec - full[:, :t]).abs().max())
+    require(bool(torch.allclose(dec, full[:, :t], rtol=2e-3, atol=2e-3)),
+            f"lm (a): decode vs full forward max |err| {err}")
+    out["a_decode_vs_forward_max_abs_err"] = err
+    log("lm", f"(a) {cfg.name} float32 at full width ({cfg.n_layers} layers), B={b} T={t}: teacher-forced "
+        f"forward_decode == the full forward's logits within rtol = atol = 2e-3 (max |err| "
+        f"{err:.3g}; T < window 1024, so this holds the global/local split) on {card}")
+    del model, hidden, full, dec
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(f32, n_layers=len(cfg.pattern_unit))
+    log("lm", f"CUT: (b) runs {cfg.name} at full width with the depth cut from {cfg.n_layers} to "
+        f"{cut.n_layers} layers (one pattern unit, {cut.param_count():,} params, "
+        f"{cut.param_count() * 4 / 1e9:.1f} GB in float32) so that the CPU run takes seconds")
+    on_cpu = zoo.init_params(cut, torch.Generator().manual_seed(0), device="cpu")
+    on_card = Transformer(cut, device=dev)
+    with torch.no_grad():
+        for pc, pg in zip(on_cpu.parameters(), on_card.parameters()):
+            pg.copy_(pc)
+    prompts = batch_at_step(TokenStreamConfig(cfg.vocab_size, LM_CPU_PROMPT, 2, seed=3), 0)["tokens"]
+    t0 = time.perf_counter()
+    c_tok, c_log = lm_decode(on_cpu, torch.from_numpy(prompts), LM_CPU_NEW, torch.float32)
+    cpu_s = time.perf_counter() - t0
+    g_tok, g_log = lm_decode(on_card, torch.from_numpy(prompts).to(dev), LM_CPU_NEW, torch.float32)
+    g_tok, g_log = g_tok.cpu(), g_log.cpu()
+    top2 = torch.topk(c_log[:, LM_CPU_PROMPT - 1:], 2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).min(dim=0).values  # the closest row a step
+    close_step = next((i for i, g in enumerate(gaps.tolist()) if g < 1e-3), None)
+    # tokens up to that step must be equal; logits up to and with it (the
+    # inputs are the same until a token differs)
+    upto = LM_CPU_NEW if close_step is None else close_step
+    same(g_tok[:, :upto], c_tok[:, :upto], "lm (b): card vs CPU greedy tokens")
+    n_log = LM_CPU_PROMPT - 1 + min(upto + 1, LM_CPU_NEW)
+    err = float((g_log[:, :n_log] - c_log[:, :n_log]).abs().max())
+    require(bool(torch.allclose(g_log[:, :n_log], c_log[:, :n_log], rtol=1e-4, atol=1e-4)),
+            f"lm (b): card vs CPU logits max |err| {err}")
+    out.update(b_card_vs_cpu_max_abs_err=err, b_tokens_equal_steps=upto, b_close_step=close_step,
+               b_min_top2_gap=float(gaps.min()), b_cpu_s=cpu_s)
+    log("lm", f"(b) card == CPU at full width, {cut.n_layers} layers, float32, B=2, a "
+        f"{LM_CPU_PROMPT}-token prompt then {LM_CPU_NEW} greedy tokens: logits within rtol = atol "
+        f"= 1e-4 (max |err| {err:.3g}), tokens equal for {upto} steps; first step with the CPU's "
+        f"top-2 gap under 1e-3: {close_step} (smallest gap {float(gaps.min()):.3g}); the CPU "
+        f"took {cpu_s:.1f} s; on {card}")
+    return out
+
+
+def lm_phase(eng, q, targets, card: str, cap: Capture) -> dict:
+    """The LM serving path at full width (the module docstring's lm step)."""
+    dev = eng.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = zoo.init_params(cfg, torch.Generator("cuda").manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == cfg.param_count(), f"lm: {n_params:,} params, {cfg.param_count():,} configured")
+    out = {"arch": LM_ARCH, "dtype": cfg.dtype, "n_layers": cfg.n_layers, "params": n_params,
+           "device_bytes": lm_bytes(model), "init_s": time.perf_counter() - t0}
+    log("lm", f"{LM_ARCH} at full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, vocab {cfg.vocab_size:,}), "
+        f"{cfg.dtype} activations over float32 masters, random init from "
+        f"torch.Generator('cuda').manual_seed(0): {n_params:,} params, "
+        f"{out['device_bytes'] / 1e9:.2f} GB on the card, in {out['init_s']:.1f} s")
+    non_embed = n_params - cfg.vocab_size * cfg.d_model  # tied: the embedding once
+
+    # prefill
+    b, t = LM_PREFILL
+    batch = batch_at_step(TokenStreamConfig(cfg.vocab_size, t, b, seed=0), 0)
+    prefill = make_prefill_step(cfg)
+    for rep in range(2):  # the first call warms cuBLAS up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = prefill(model, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    logits, kv = res["logits"], res["caches"]
+    require(logits.shape == (b, 1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+            f"lm prefill: logits {tuple(logits.shape)} finite={bool(torch.isfinite(logits).all())}")
+    require(len(kv) == cfg.n_layers and kv[0][0].shape == (b, t, cfg.n_kv_heads, cfg.head_dim)
+            and kv[0][0].dtype == torch.bfloat16, "lm prefill: caches")
+    lin_ops = 2 * non_embed * b * t
+    attn_ops = cfg.n_layers * 2 * (2 * b * cfg.n_heads * t * t * cfg.head_dim)
+    bound_s = lin_ops / BF16_OPS_PER_S + attn_ops / FP32_OPS_PER_S
+    out["prefill"] = {"B": b, "T": t, "s": secs, "tokens_per_s": b * t / secs, "bound_s": bound_s,
+                      "bound_linear_s": lin_ops / BF16_OPS_PER_S,
+                      "bound_attention_s": attn_ops / FP32_OPS_PER_S}
+    log("lm", f"prefill B={b} T={t} (make_prefill_step): {secs:.3f} s, "
+        f"{b * t / secs:,.0f} tokens/s; bound {bound_s:.3f} s = {lin_ops / 1e12:.1f} TFLOP of "
+        f"products over 989 TFLOP/s bf16 + {attn_ops / 1e12:.2f} TFLOP of attention in float32 "
+        f"over 67 TFLOP/s; KV {sum(k.numel() + v.numel() for k, v in kv) * 2 / 1e9:.2f} GB, "
+        f"on {card}")
+    del res, logits, kv
+
+    # decode
+    b, length, n_steps = LM_DECODE
+    step = make_serve_step(cfg)
+    caches = model.init_caches(b, length, torch.bfloat16)
+    tok = torch.from_numpy(batch["tokens"][:b, :1]).to(dev)
+    lat = []
+    for pos in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step(model, caches, tok, pos)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        caches, tok = res["caches"], res["next_tokens"]
+    require(bool(torch.isfinite(res["logits"]).all()), "lm decode: logits not finite")
+    bf16_weights = n_params * 2
+    # what each step's per-call casts move: a linear reads its float32 master,
+    # writes the bf16 copy and the product reads it back (4 + 2 + 2 bytes a
+    # param); the tied unembedding is cast to bf16 and back to float32 for
+    # the float32-output product (4 + 2 + 2 + 4 + 4)
+    cast_bytes = 8 * non_embed + 16 * cfg.vocab_size * cfg.d_model
+    lat_ms = np.asarray(lat[1:]) * 1e3  # the first step warms up
+    out["decode"] = {"B": b, "cache_len": length, "steps": n_steps,
+                     "p50_ms": float(np.percentile(lat_ms, 50)),
+                     "p99_ms": float(np.percentile(lat_ms, 99)),
+                     "bound_ms": bf16_weights / HBM_BYTES_PER_S * 1e3,
+                     "cast_bytes_per_step": cast_bytes,
+                     "cast_bound_ms": cast_bytes / HBM_BYTES_PER_S * 1e3}
+    d = out["decode"]
+    d["profile"] = profile_batch(lambda: step(model, caches, tok, n_steps), d["p50_ms"], top=6)
+    require(d["profile"]["device_busy_ms"] > 0, "lm decode: the profiler saw no device time")
+    log("lm", f"decode step profiled: device busy {d['profile']['device_busy_ms']:.2f} ms of the "
+        f"p50 (share {d['profile']['device_busy_share']:.3f}), "
+        f"{d['profile']['device_launches']} launches; top kernels "
+        f"{json.dumps(d['profile']['top_kernels_ms_calls'])} on {card}")
+    log("lm", f"decode B={b}, bf16 caches of {length} (make_serve_step), {n_steps} steps: p50 "
+        f"{d['p50_ms']:.2f} ms p99 {d['p99_ms']:.2f} ms a step; byte bound {d['bound_ms']:.2f} ms "
+        f"({bf16_weights / 1e9:.2f} GB of bf16 weights over 3.35 TB/s); the per-call casts from "
+        f"the float32 masters move {cast_bytes / 1e9:.1f} GB a step ({d['cast_bound_ms']:.2f} ms "
+        f"at 3.35 TB/s) on {card}")
+    del caches, res
+
+    # generate: retrieval on the 1M index, then prefill-by-decode and greedy decode
+    n = int(eng.codes.shape[0])
+    passages = np.random.default_rng(5).integers(0, cfg.vocab_size, (n, LM_PASSAGE)).astype(np.int32)
+    search = SearchConfig(mode="gate", **SEARCH)
+    srv = RAGServer(engine=eng, cfg=cfg, params=model, passage_tokens=passages,
+                    search_config=search)
+    rng = np.random.default_rng(6)
+    q_np, t_np = q[:LM_REQUESTS].cpu().numpy(), targets[:LM_REQUESTS].cpu().numpy()
+    reqs = [RAGRequest(query_vec=q_np[i], prompt_tokens=rng.integers(0, cfg.vocab_size, LM_PROMPT)
+                       .astype(np.int32), filter_kind="label", filter_params=t_np[i])
+            for i in range(LM_REQUESTS)]
+    seen, retrieve = {}, srv.retrieve
+
+    def timed_retrieve(requests):
+        t0 = time.perf_counter()
+        ids, stats = retrieve(requests)
+        seen.update(ids=ids, ms=(time.perf_counter() - t0) * 1e3)
+        return ids, stats
+
+    srv.retrieve = timed_retrieve
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    PLAIN_MERGES[0] = 0
+    t0 = time.perf_counter()
+    toks, stats = srv.generate(reqs, max_new_tokens=LM_NEW)
+    total_s = time.perf_counter() - t0
+    cap.launches["rag_generate"] = {**_build.LAUNCHES, "plain_merges": PLAIN_MERGES[0]}
+    require_launches(cap, "rag_generate", ("pq_lookup", "rerank"),
+                     ("l2_dist", "plain_merges", "fused_traversal"))
+    require(toks.shape == (LM_REQUESTS, LM_NEW) and toks.dtype == np.int32
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size, f"lm generate: {toks}")
+    direct = eng.search(q[:LM_REQUESTS], filter_kind="label", filter_params=targets[:LM_REQUESTS],
+                        search_config=search)
+    same(torch.from_numpy(seen["ids"]), direct.ids[:, :search.result_k].cpu(),
+         "lm generate: retrieved vs direct search ids")
+    for f in direct.stats._fields:
+        same(getattr(stats, f), getattr(direct.stats, f).cpu(), f"lm generate: {f} vs direct")
+    p_len = LM_PASSAGE * search.result_k + LM_PROMPT
+    n_dec = p_len + LM_NEW - 1
+    decode_ms = (total_s * 1e3 - seen["ms"]) / n_dec
+    out["generate"] = {"requests": LM_REQUESTS, "prompt_len": p_len, "new": LM_NEW,
+                       "decode_steps": n_dec, "retrieve_ms": seen["ms"],
+                       "decode_ms_per_step": decode_ms, "total_s": total_s,
+                       "launches": cap.launches["rag_generate"]}
+    log("lm", f"RAGServer.generate, {LM_REQUESTS} requests (gate L={SEARCH['search_l']} "
+        f"W={SEARCH['beam_width']} K={search.result_k}, a label filter each, {LM_PASSAGE}-token "
+        f"passages, {LM_PROMPT}-token prompts, {LM_NEW} new tokens): retrieved ids == a direct "
+        f"engine.search bit for bit; retrieve {seen['ms']:.1f} ms, {n_dec} decode steps at "
+        f"{decode_ms:.2f} ms a step (float32 caches: float32 from layer 0's attention on), "
+        f"{total_s:.2f} s in all; launches {json.dumps(cap.launches['rag_generate'])} on {card}")
+    g = out["generate"]
+    f32_caches = model.init_caches(LM_REQUESTS, p_len + LM_NEW, torch.float32)
+    g["profile"] = profile_batch(
+        lambda: model.forward_decode(torch.from_numpy(toks[:, :1]).to(dev), f32_caches, p_len),
+        decode_ms, top=6)
+    require(g["profile"]["device_busy_ms"] > 0, "lm generate: the profiler saw no device time")
+    log("lm", f"generate's decode step (float32 caches) profiled: device busy "
+        f"{g['profile']['device_busy_ms']:.2f} ms of {decode_ms:.2f} ms (share "
+        f"{g['profile']['device_busy_share']:.3f}), {g['profile']['device_launches']} launches; "
+        f"top kernels {json.dumps(g['profile']['top_kernels_ms_calls'])} on {card}")
+    del srv, model, f32_caches
+    torch.cuda.empty_cache()
+
+    out.update(lm_invariants(cfg, dev, card))
+    out["peak_allocated_gb"] = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("lm", f"phase {out['phase_s']:.1f} s; peak device memory allocated {out['peak_allocated_gb']:.2f}"
+        f" GB above the {base_bytes / 1e9:.2f} GB held before the phase, on {card}")
+    print(json.dumps({"lm": out, "card": card}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1941,13 +2217,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     card = f"{torch.cuda.get_device_name(0)} ({smi.split(',')[-1].strip()} limit)"
     print(smi, flush=True)
     log("device", f"{smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        "matmul.allow_bf16_reduced_precision_reduction="
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -1994,6 +2273,7 @@ def main(argv=None) -> int:
         ssd_phase(path, q, targets, mem_runs, card, cap)
         cache_phase(eng, path, q, targets, mem_runs, card, cap)
         serve_phase(eng, path, q, targets, card, cap)
+        lm_phase(eng, q, targets, card, cap)
         scan_phase(eng, q, targets, gt, card, cap)
         del eng, mem_runs
         torch.cuda.empty_cache()

@@ -1,6 +1,6 @@
-"""Synthetic corpora, labels and ground truth: numpy-only copies of
-``repro.data`` so the port and its smoke run make data without the JAX
-package."""
+"""Synthetic corpora, labels, ground truth and the LM token stream
+(``data.tokens``): numpy-only copies of ``repro.data`` so the port and
+its smoke run make data without the JAX package."""
 from repro_torch.data.synthetic import (
     make_bigann_like,
     make_deep_like,

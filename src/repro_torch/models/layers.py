@@ -1,0 +1,161 @@
+"""Shared model layers: norms, rotary embeddings, projections, FFNs.
+
+Port of ``repro.models.layers`` for one device: the reference's logical
+sharding constraints (``lshard``) are no-ops there and are dropped.  The
+arithmetic follows the reference op for op:
+
+  * ``rms_norm`` computes in float32, scales by ``(1 + scale)`` (a
+    Gemma-style scale initialised to ones) and casts back to the input's
+    dtype;
+  * ``linear`` casts the float32 master weight to the activation's dtype
+    at every call and rounds the product once to that dtype (a bf16
+    ``torch.matmul`` accumulates in float32 and rounds once, as XLA's
+    ``preferred_element_type=float32`` followed by ``astype`` does);
+  * ``rope`` splits the head into halves (not interleaved pairs),
+    rotates in float32 and casts back;
+  * the GeLU is the tanh form (``jax.nn.gelu``'s default; ``F.gelu``'s
+    own default is the erf form), and it and the SiLU round each op to
+    the input's dtype with the constants in that dtype, as XLA does on a
+    bf16 input.
+
+Weights are ``nn.Parameter``s in float32, the reference's masters; a
+linear's weight is held as ``(in, *out)``, the reference's layout, so a
+reference parameter tree carries over without a transpose.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def normal_init(shape, scale: float, generator: torch.Generator | None, device) -> torch.Tensor:
+    """float32 N(0, scale^2) from ``generator``; uninitialised storage when
+    no generator is given (a loader fills it)."""
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    if generator is not None:
+        w.normal_(generator=generator).mul_(scale)
+    return w
+
+
+class Linear(nn.Module):
+    """Weight ``w`` (in_dim, *out_shape) with fan-in init N(0, 1/in_dim)
+    (the reference's ``init_linear``), optional zero bias ``b`` (*out_shape)."""
+
+    def __init__(self, in_dim: int, out_shape, *, bias: bool = False,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        out_shape = (out_shape,) if isinstance(out_shape, int) else tuple(out_shape)
+        self.w = nn.Parameter(normal_init((in_dim,) + out_shape, 1.0 / math.sqrt(in_dim),
+                                      generator, device), requires_grad=False)
+        self.b = (nn.Parameter(torch.zeros(out_shape, dtype=torch.float32, device=device),
+                               requires_grad=False) if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.w, self.b)
+
+
+class RMSNorm(nn.Module):
+    """``scale`` (dim,) float32, initialised to ones; see ``rms_norm``."""
+
+    def __init__(self, dim: int, eps: float, *, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones((dim,), dtype=torch.float32, device=device),
+                                  requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.scale, self.eps)
+
+
+class FFN(nn.Module):
+    """Gated FFN (SwiGLU for ``act="silu"``, GeGLU for ``"gelu"``)."""
+
+    def __init__(self, d_model: int, d_ff: int, act: str, *,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.act = act
+        self.gate = Linear(d_model, d_ff, generator=generator, device=device)
+        self.up = Linear(d_model, d_ff, generator=generator, device=device)
+        self.down = Linear(d_ff, d_model, generator=generator, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ffn(x, self.gate.w, self.up.w, self.down.w, self.act)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """x (..., in) @ w (in, *out) -> (..., *out) in x's dtype: the weight
+    cast to it, the product rounded once to it."""
+    y = torch.matmul(x, w.to(x.dtype).reshape(w.shape[0], -1))
+    y = y.reshape(*x.shape[:-1], *w.shape[1:])
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y
+
+
+def rope_freq(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """``theta ** (-arange(half) / half)`` as float32: the exponent in
+    float32 (exact for a power-of-two half), the power in float64 and
+    rounded once, which matches XLA's correctly rounded float32 power
+    where torch's float32 ``pow`` can be an ulp off."""
+    half = head_dim // 2
+    e = -torch.arange(0, half, dtype=torch.float32) / half
+    return (theta ** e.double()).float().to(device)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, freq: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding. x (..., T, H, dh), positions (..., T) integer,
+    ``freq`` from ``rope_freq``."""
+    half = x.shape[-1] // 2
+    ang = positions[..., None].float() * freq  # (..., T, half)
+    cos = torch.cos(ang)[..., None, :]  # (..., T, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def scalar(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as a Python float.  An op of a tensor
+    with it rounds as the same op with a 0-dim tensor of that dtype (a
+    weak-typed constant of the reference, rounded to the array's dtype
+    first), and needs no host-to-device copy, which would wait for the
+    card's queue."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default, ``approximate=True``: the tanh form)
+    op for op: ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 *
+    x**3))))`` with the constants in x's dtype and each op rounded to it,
+    as XLA evaluates it on a bf16 input (``F.gelu(approximate="tanh")``
+    rounds once; its default is the erf form)."""
+    dt = x.dtype
+    inner = scalar(math.sqrt(2.0 / math.pi), dt) * (x + scalar(0.044715, dt) * (x * (x * x)))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * logistic(x)``, the logistic as XLA expands it,
+    ``1 / (1 + exp(-x))``, each op rounded to x's dtype (``F.silu`` and
+    ``torch.sigmoid`` round once, which differs in bf16)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def act(name: str):
+    """The reference's ``_act``: the tanh-form GeLU for "gelu", else SiLU."""
+    return gelu_tanh if name == "gelu" else silu
+
+
+def ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+        act_name: str) -> torch.Tensor:
+    """Gated FFN: down(act(gate(x)) * up(x))."""
+    h = act(act_name)(linear(x, w_gate)) * linear(x, w_up)
+    return linear(h, w_down)

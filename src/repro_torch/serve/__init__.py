@@ -1,9 +1,11 @@
-"""Retrieval serving: ``RAGServer.retrieve`` and the multi-tenant
-``ServeFrontend``.
+"""Serving: the LM's prefill and decode steps, ``RAGServer`` (retrieval
+and generation) and the multi-tenant ``ServeFrontend``.
 
-The reference's LM-side names (``make_serve_step``, ``make_prefill_step``,
-``cache_pspecs``, ``RAGServer.generate``) come with the port's LM side.
+The reference's ``cache_pspecs`` (cache shardings) waits for the port's
+sharding layouts.
 """
+from repro_torch.serve.decode import make_serve_step
+from repro_torch.serve.prefill import make_prefill_step
 from repro_torch.serve.rag import RAGRequest, RAGServer
 from repro_torch.serve.server import (
     FAULT_POLICIES,
@@ -17,6 +19,8 @@ from repro_torch.serve.server import (
 )
 
 __all__ = [
+    "make_serve_step",
+    "make_prefill_step",
     "RAGRequest",
     "RAGServer",
     "ServeFrontend",

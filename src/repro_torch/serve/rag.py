@@ -1,15 +1,11 @@
-"""Retrieval-augmented serving, retrieval half: GateANN filtered retrieval.
+"""Retrieval-augmented serving: GateANN filtered retrieval + LM decode.
 
 Port of ``repro.serve.rag``.  A request carries a query vector, a
 metadata predicate and a prompt; ``RAGServer.retrieve`` finds the top-K
 *filter-passing* passages of a batch of requests with graph tunnelling,
-and ``build_prompts`` splices their passage tokens into the prompts.
-
-Only the retrieval half is ported.  The reference's ``RAGServer`` also
-holds a language model (``cfg`` / ``params`` / ``layout``) and decodes
-(``generate``), through ``configs.base``, ``models.transformer`` and
-``distributed.sharding``; those arrive with the port's LM side, and until
-then this ``RAGServer`` has no such fields and no ``generate``.
+``build_prompts`` splices their passage tokens into the prompts (left
+padded with token 0, and no padding mask: the reference's behaviour),
+and ``generate`` decodes greedily with the port's ``Transformer``.
 
 Serving is where the hot-node cache tier earns its keep: build the
 engine with ``EngineConfig.cache_budget_bytes`` (or re-wrap with
@@ -21,6 +17,8 @@ every batch it runs the between-batch refresh check.
 Results come back on the host: each group's ids and stats reach it in
 one device-to-host copy (the two stacked into one tensor), and the stats
 handed to callers are host tensors, as the reference's are host arrays.
+``generate`` keeps its tokens on the model's device and copies them to
+the host once, at the end.
 """
 from __future__ import annotations
 
@@ -30,8 +28,10 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import GateANNEngine
 from repro_torch.core.search import SearchConfig, SearchStats
+from repro_torch.models.transformer import Transformer
 from repro_torch.store.adaptive import AdaptiveRecordCache
 
 
@@ -54,7 +54,14 @@ def _stack_params(params: list, device: torch.device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class RAGServer:
+    """``cfg`` / ``params``: the generator's config and the port's
+    ``Transformer`` for it (the reference's ``params`` is a parameter tree;
+    its ``layout`` has no counterpart on one device).  A retrieval-only
+    server passes ``cfg=None, params=None``."""
+
     engine: GateANNEngine
+    cfg: ModelConfig | None
+    params: Transformer | None
     passage_tokens: np.ndarray  # (N_corpus, passage_len) token ids per vector
     search_config: SearchConfig = dataclasses.field(default_factory=SearchConfig)
     # batch-size bucketing: pad each per-kind sub-batch up to the smallest
@@ -216,3 +223,34 @@ class RAGServer:
         for i, p in enumerate(prompts):
             batch[i, max_len - len(p):] = p
         return batch
+
+    def generate(self, requests: list[RAGRequest], *, max_new_tokens: int = 16):
+        """retrieve -> build_prompts -> greedy decode.  Returns (tokens
+        (R, max_new_tokens) int32 numpy, stats).
+
+        As the reference: the prompt is teacher-forced through the decode
+        path one position at a time into float32 caches (on a bf16 model
+        that promotes the residual stream to float32 from the first
+        layer's attention output on), then each step's argmax (first
+        index on ties) is fed back.  The tokens stay on the device until
+        one copy at the end."""
+        ids, stats = self.retrieve(requests)
+        if not requests:  # nothing to decode — keep the output shapes
+            return np.zeros((0, max_new_tokens), np.int32), stats
+        if self.params is None or self.params.cfg != self.cfg:
+            raise ValueError("generate needs params: the Transformer of cfg")
+        model = self.params
+        prompts = torch.from_numpy(self.build_prompts(requests, ids)).to(model.device)
+        b, p_len = prompts.shape
+        total = p_len + max_new_tokens
+        caches = model.init_caches(b, total, torch.float32)
+        tok = prompts[:, :1]
+        out = []
+        for t in range(total - 1):
+            logits, caches = model.forward_decode(tok, caches, t)
+            if t + 1 < p_len:
+                tok = prompts[:, t + 1:t + 2]
+            else:
+                tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+                out.append(tok[:, 0])
+        return torch.stack(out, dim=1).cpu().numpy(), stats

@@ -19,7 +19,9 @@ equal to direct search; the stats hook on card tensors equal to the CPU's;
 a telemetry-off batch launching what the bare loop launches; and a 2-rank
 gloo mesh on the card running the distributed step (sharded fetch through
 gloo on CUDA tensors, the ADC and re-rank kernels once a hop) equal to the
-same mesh on the CPU and to the single-host search.  Within
+same mesh on the CPU and to the single-host search; the LM's attention-only
+smoke configs (prefill, greedy decode) and ``RAGServer.generate`` on the
+card equal to the CPU in float32.  Within
 ``expanded_tolerance``: the expanded L2 form.  The input
 generators are shared with ``tests/test_torch_kernels.py`` and
 ``tests/test_torch_rerank.py``.
@@ -805,7 +807,8 @@ def test_card_serve_frontend_equals_direct_search(cuda, tmp_path):
     cfg = SearchConfig(mode="gate", search_l=24, beam_width=4)
     for tier, depth in (("memory", 1), ("disk", 2)):
         eng = GateANNEngine.load(path, device=cuda, store_tier=tier)
-        rag = RAGServer(engine=eng, passage_tokens=np.zeros((x.shape[0], 4), np.int32),
+        rag = RAGServer(engine=eng, cfg=None, params=None,
+                        passage_tokens=np.zeros((x.shape[0], 4), np.int32),
                         search_config=SearchConfig(mode="gate", search_l=24, beam_width=4,
                                                    pipeline_depth=depth),
                         bucket_sizes=(4, 8))
@@ -947,3 +950,82 @@ def read_vectors(path):
     from repro_torch.store import read_index
 
     return read_index(path).vectors()
+
+
+# ------------------------------------------------------------ the LM side
+LM_ARCHS = ("gemma3-4b", "gemma-7b", "qwen2.5-32b", "internvl2-2b", "deepseek-coder-33b",
+            "musicgen-medium")
+
+
+def lm_pair(arch, cuda, dtype="float32"):
+    """A smoke-config model on the CPU and the same weights on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import zoo
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    cpu = zoo.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = zoo.init_params(cfg, torch.Generator().manual_seed(0), device="cpu").to(cuda)
+    return cfg, cpu, card
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_card_lm_smoke_configs_equal_cpu(cuda, arch):
+    """Each attention-only smoke config in float32 (TF32 off): prefill
+    logits and per-layer KV, then 16 greedy decode steps fed their own
+    tokens — tokens equal, card vs CPU, and logits and activations within
+    rtol = 1e-5 and atol = 1e-5 times the tensor's largest magnitude
+    (above 1): the summation orders differ, and gemma3-4b's prefill logits
+    (up to about 7) came 2.3e-5 apart on an H100."""
+    from repro_torch.serve import make_prefill_step, make_serve_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu, card = lm_pair(arch, cuda)
+    batch = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)}
+    if cfg.frontend == "vision_stub":
+        batch["prefix_embeds"] = np.random.default_rng(2).normal(
+            size=(2, cfg.n_prefix_embeds, cfg.d_model)).astype(np.float32) * 0.02
+    def close(got, want):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, float(want.abs().max())))
+
+    want, got = make_prefill_step(cfg)(cpu, batch), make_prefill_step(cfg)(card, batch)
+    close(got["logits"], want["logits"])
+    for (k, v), (wk, wv) in zip(got["caches"], want["caches"]):
+        close(k, wk)
+        close(v, wv)
+    step = make_serve_step(cfg)
+    c_cpu, c_card = cpu.init_caches(2, 16, torch.float32), card.init_caches(2, 16, torch.float32)
+    tok = batch["tokens"][:, :1]
+    t_cpu, t_card = tok, tok
+    for pos in range(16):
+        w, g = step(cpu, c_cpu, t_cpu, pos), step(card, c_card, t_card, pos)
+        close(g["logits"], w["logits"])
+        assert torch.equal(g["next_tokens"].cpu(), w["next_tokens"]), (arch, pos)
+        t_cpu, t_card = w["next_tokens"], g["next_tokens"]
+
+
+def test_card_generate_equals_cpu(cuda, tmp_path):
+    """``RAGServer.generate`` with the gemma3-4b smoke model (float32) over
+    one index on the card and on the CPU: the same tokens and stats."""
+    from repro_torch.serve import RAGRequest, RAGServer
+
+    x, path = disk_index(tmp_path)
+    q = make_queries(x, 4, seed=1)
+    cfg, cpu, card = lm_pair("gemma3-4b", cuda)
+    rng = np.random.default_rng(3)
+    passages = rng.integers(0, cfg.vocab_size, (x.shape[0], 8)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 6)).astype(np.int32)
+    search = SearchConfig(mode="gate", search_l=24, beam_width=4, result_k=3)
+    out = {}
+    for name, dev, model in (("cpu", "cpu", cpu), ("card", cuda, card)):
+        srv = RAGServer(engine=GateANNEngine.load(path, device=dev), cfg=cfg, params=model,
+                        passage_tokens=passages, search_config=search)
+        reqs = [RAGRequest(query_vec=q[i], prompt_tokens=prompts[i], filter_kind="label",
+                           filter_params=np.int32(i % 3)) for i in range(4)]
+        out[name] = srv.generate(reqs, max_new_tokens=8)
+    np.testing.assert_array_equal(out["card"][0], out["cpu"][0])
+    for f in out["cpu"][1]._fields:
+        np.testing.assert_array_equal(getattr(out["card"][1], f).numpy(),
+                                      getattr(out["cpu"][1], f).numpy())

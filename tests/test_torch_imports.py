@@ -38,7 +38,8 @@ GUARD = textwrap.dedent("""
 """)
 
 # modules the port must hold: the disk tier, the kernels, the build, the cache
-# tiers, telemetry, retrieval serving and distributed search
+# tiers, telemetry, retrieval serving, distributed search, and the LM side
+# (configs, models, the token stream, the prefill and decode steps)
 EXPECTED = {
     "repro_torch.core.engine", "repro_torch.core.search", "repro_torch.core.pq",
     "repro_torch.core.io_model", "repro_torch.core.graph",
@@ -52,6 +53,13 @@ EXPECTED = {
     "repro_torch.obs.stats", "repro_torch.obs.export",
     "repro_torch.serve", "repro_torch.serve.rag", "repro_torch.serve.server",
     "repro_torch.launch", "repro_torch.launch.mesh", "repro_torch.core.distributed_search",
+    "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.registry",
+    *(f"repro_torch.configs.{m}" for m in (
+        "dbrx_132b", "deepseek_coder_33b", "gemma3_4b", "gemma_7b", "internvl2_2b",
+        "llama4_maverick", "musicgen_medium", "qwen2_5_32b", "recurrentgemma_9b", "xlstm_350m")),
+    "repro_torch.models", "repro_torch.models.layers", "repro_torch.models.attention",
+    "repro_torch.models.transformer", "repro_torch.models.zoo", "repro_torch.models.convert",
+    "repro_torch.data.tokens", "repro_torch.serve.decode", "repro_torch.serve.prefill",
 }
 
 

@@ -1,0 +1,228 @@
+"""The port's LM serving path (``repro_torch.serve``: ``make_prefill_step``,
+``make_serve_step``, ``RAGServer.generate``) against the reference's, on
+the CPU, on the gemma3-4b smoke config (7 layers, a window-16 ring on
+six of them).
+
+  * the prefill and serve steps: logits, caches and greedy tokens step by
+    step, float32 (rtol = atol = 2e-5; measured 1.6e-5 / 3.7e-5);
+  * ``generate`` over the tiny engine's saved index (the reference
+    searches its engine, the port loads the file): the generated tokens
+    equal the reference's exactly in float32 and in bf16, and so do the
+    retrieved ids' ``SearchStats`` and the ``io_report``.  In bf16 the
+    reference decodes into float32 caches, which lifts the residual
+    stream to float32 from layer 0's attention output on.  The port's
+    logits along ``generate``'s own 37 steps are within 2e-4 of the
+    reference's on the same sequence (measured 5.4e-5 in float32 and
+    2.6e-5 in bf16, abs, at logits up to about 7), while a port that
+    kept bf16 through the stack (bf16 caches) is 0.40 away;
+  * an empty batch gives the reference's shapes.
+
+Both packages compute on the same weights: the port's seeded init
+carried into the reference's tree layout (``params_to_reference``; the
+reference's own init is held to the carry-over in
+``tests/test_torch_models.py``).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_smoke_config as jsmoke  # noqa: E402
+from repro.core import SearchConfig as JSearchConfig  # noqa: E402
+from repro.distributed.sharding import NULL_LAYOUT  # noqa: E402
+from repro.models import transformer as tfm  # noqa: E402
+from repro.serve import RAGRequest as JRequest  # noqa: E402
+from repro.serve import RAGServer as JRAGServer  # noqa: E402
+from repro.serve import make_prefill_step as jmake_prefill  # noqa: E402
+from repro.serve import make_serve_step as jmake_serve  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core import GateANNEngine, SearchConfig  # noqa: E402
+from repro_torch.core.search import SearchStats  # noqa: E402
+from repro_torch.models import params_to_reference, zoo  # noqa: E402
+from repro_torch.serve import RAGRequest, RAGServer, make_prefill_step, make_serve_step  # noqa: E402
+
+F32 = dict(rtol=2e-5, atol=2e-5)
+SEARCH = dict(mode="gate", search_l=32, beam_width=4, result_k=3)
+PASSAGE, PROMPT, NEW = 8, 6, 8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs several test workers on the machine's cores: one
+    torch thread a worker keeps them from oversubscribing it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def cfgs(dtype: str):
+    return (dataclasses.replace(jsmoke("gemma3-4b"), dtype=dtype),
+            dataclasses.replace(get_smoke_config("gemma3-4b"), dtype=dtype))
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """(the port's model builder by dtype, the same weights as a reference tree)."""
+    _, cfg = cfgs("float32")
+    model = zoo.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tree = params_to_reference(model)
+
+    def port(dtype: str):
+        m = zoo.init_params(cfgs(dtype)[1], torch.Generator().manual_seed(0), device="cpu")
+        assert all(torch.equal(p, q) for p, q in zip(m.parameters(), model.parameters()))
+        return m
+
+    return port, tree
+
+
+def host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def test_prefill_and_serve_steps(weights):
+    """The reference's ``make_prefill_step`` and ``make_serve_step`` and
+    the port's: prefill logits and every layer's KV; then 24 greedy
+    serve steps fed their own tokens (f32 caches), logits and next
+    tokens equal at every step; ``greedy=False`` hands the tokens back."""
+    port, tree = weights
+    jcfg, cfg = cfgs("float32")
+    model = port("float32")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    want = jax.jit(jmake_prefill(jcfg, NULL_LAYOUT))(tree, {"tokens": jnp.asarray(toks)})
+    got = make_prefill_step(cfg)(model, {"tokens": toks})
+    np.testing.assert_allclose(host(got["logits"]), host(want["logits"]), **F32)
+    n_unit = len(cfg.pattern_unit)
+    for i, (k, v) in enumerate(got["caches"]):
+        if i < cfg.n_units * n_unit:
+            u, pos = divmod(i, n_unit)
+            wk, wv = (a[u] for a in want["caches"][0][pos])
+        else:
+            wk, wv = want["caches"][1 + i - cfg.n_units * n_unit]
+        for g, w in ((k, wk), (v, wv)):
+            w = host(w)
+            np.testing.assert_allclose(host(g), w, rtol=2e-5, atol=2e-5 * max(1.0, np.abs(w).max()))
+
+    jstep = jax.jit(jmake_serve(jcfg, NULL_LAYOUT))
+    step = make_serve_step(cfg)
+    jc = tfm.init_caches(jcfg, 2, 24, jnp.float32)
+    c = model.init_caches(2, 24, torch.float32)
+    jtok, tok = jnp.asarray(toks[:, :1]), toks[:, :1]
+    for t in range(24):
+        w = jstep(tree, jc, jtok, jnp.int32(t))
+        g = step(model, c, tok, t)
+        np.testing.assert_allclose(host(g["logits"]), host(w["logits"]), **F32)
+        np.testing.assert_array_equal(g["next_tokens"].numpy(), np.asarray(w["next_tokens"]))
+        assert g["next_tokens"].dtype == torch.int32 and g["next_tokens"].shape == (2, 1)
+        jc, c = w["caches"], g["caches"]
+        jtok, tok = w["next_tokens"], g["next_tokens"]
+    same = make_serve_step(cfg, greedy=False)(model, model.init_caches(2, 4, torch.float32),
+                                              toks[:, :1], 0)
+    np.testing.assert_array_equal(same["next_tokens"].numpy(), toks[:, :1])
+
+
+@pytest.fixture(scope="module")
+def index_path(tiny_engine, tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("torch_lm_serve") / "tiny.gann")
+    tiny_engine.save(path)
+    return path
+
+
+@pytest.fixture(scope="module")
+def port_engine(index_path):
+    return GateANNEngine.load(index_path, device="cpu")
+
+
+def _requests(queries, vocab: int, req_cls):
+    rng = np.random.default_rng(4)
+    return [req_cls(query_vec=queries[i], prompt_tokens=rng.integers(0, vocab, PROMPT).astype(np.int32),
+                    filter_kind="label", filter_params=np.int32(i % 3))
+            for i in range(4)]
+
+
+def _passages(n: int, vocab: int) -> np.ndarray:
+    return np.random.default_rng(5).integers(0, vocab, (n, PASSAGE)).astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_equals_reference(weights, tiny_engine, port_engine, tiny_corpus, dtype):
+    port, tree = weights
+    jcfg, cfg = cfgs(dtype)
+    model = port(dtype)
+    _, _, queries = tiny_corpus
+    n = int(port_engine.codes.shape[0])
+    passages = _passages(n, cfg.vocab_size)
+    jsrv = JRAGServer(engine=tiny_engine, cfg=jcfg, params=tree, layout=NULL_LAYOUT,
+                      passage_tokens=passages, search_config=JSearchConfig(**SEARCH))
+    srv = RAGServer(engine=port_engine, cfg=cfg, params=model, passage_tokens=passages,
+                    search_config=SearchConfig(**SEARCH))
+    want, wstats = jsrv.generate(_requests(queries, cfg.vocab_size, JRequest), max_new_tokens=NEW)
+
+    steps = []  # the port's logits along generate's own steps
+    decode = model.forward_decode
+
+    def recorded(tokens, caches, pos):
+        logits, caches = decode(tokens, caches, pos)
+        steps.append(host(logits)[:, 0])
+        return logits, caches
+
+    model.forward_decode = recorded
+    got, stats = srv.generate(_requests(queries, cfg.vocab_size, RAGRequest), max_new_tokens=NEW)
+    del model.forward_decode
+    assert got.dtype == np.int32 and got.shape == (4, NEW)
+    np.testing.assert_array_equal(got, want)
+    for f in SearchStats._fields:
+        np.testing.assert_array_equal(getattr(stats, f).numpy(), np.asarray(getattr(wstats, f)))
+    assert srv.io_report() == jsrv.io_report()
+
+    # the reference's logits along the same sequence: prompts + generated
+    ids, _ = srv.retrieve(_requests(queries, cfg.vocab_size, RAGRequest))
+    seq = np.concatenate([srv.build_prompts(_requests(queries, cfg.vocab_size, RAGRequest), ids),
+                          got], axis=1)
+    jstep = jax.jit(lambda p, c, t, pos: tfm.forward_decode(p, jcfg, NULL_LAYOUT, t, c, pos))
+    jc = tfm.init_caches(jcfg, 4, seq.shape[1], jnp.float32)
+    ref = []
+    for t in range(seq.shape[1] - 1):
+        logits, jc = jstep(tree, jc, jnp.asarray(seq[:, t:t + 1]), jnp.int32(t))
+        ref.append(host(logits)[:, 0])
+    ref, steps = np.stack(ref), np.stack(steps)
+    err = float(np.abs(steps - ref).max())
+    assert err <= 2e-4, err
+    if dtype == "bfloat16":
+        # a port keeping bf16 through the stack (bf16 caches) is far off
+        c = model.init_caches(4, seq.shape[1], torch.bfloat16)
+        bf = [host(model.forward_decode(torch.from_numpy(seq[:, t:t + 1]), c, t)[0])[:, 0]
+              for t in range(seq.shape[1] - 1)]
+        assert float(np.abs(np.stack(bf) - ref).max()) > 0.1
+
+
+def test_generate_empty_batch(weights, tiny_engine, port_engine):
+    port, tree = weights
+    jcfg, cfg = cfgs("float32")
+    n = int(port_engine.codes.shape[0])
+    jsrv = JRAGServer(engine=tiny_engine, cfg=jcfg, params=tree, layout=NULL_LAYOUT,
+                      passage_tokens=_passages(n, 512), search_config=JSearchConfig(**SEARCH))
+    srv = RAGServer(engine=port_engine, cfg=cfg, params=port("float32"),
+                    passage_tokens=_passages(n, 512), search_config=SearchConfig(**SEARCH))
+    want, wstats = jsrv.generate([], max_new_tokens=4)
+    got, stats = srv.generate([], max_new_tokens=4)
+    assert got.shape == want.shape == (0, 4) and got.dtype == want.dtype == np.int32
+    for f in SearchStats._fields:
+        assert tuple(getattr(stats, f).shape) == np.asarray(getattr(wstats, f)).shape == (0,)
+    assert srv.io_report() == jsrv.io_report()
+
+
+def test_generate_needs_the_model(port_engine, tiny_corpus):
+    _, _, queries = tiny_corpus
+    n = int(port_engine.codes.shape[0])
+    srv = RAGServer(engine=port_engine, cfg=None, params=None, passage_tokens=_passages(n, 512),
+                    search_config=SearchConfig(**SEARCH))
+    with pytest.raises(ValueError, match="generate needs params"):
+        srv.generate(_requests(queries, 512, RAGRequest))

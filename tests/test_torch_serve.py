@@ -76,7 +76,7 @@ def port(index_path):
 
 def _rag(engine, *, bucket_sizes=(4,), depth=1):
     return RAGServer(
-        engine=engine,
+        engine=engine, cfg=None, params=None,
         passage_tokens=np.zeros((int(engine.codes.shape[0]), 4), np.int32),
         search_config=SearchConfig(**SEARCH, pipeline_depth=depth),
         bucket_sizes=bucket_sizes,
