@@ -6,8 +6,10 @@ filtered search on the memory tier and off the index file on the disk
 tier (synchronous and pipelined), with and without a hot-record cache,
 and the brute-force PQ scan — at SIFT1M scale through the hand-written
 CUDA kernels, serves retrieval-augmented generation with gemma3-4b at
-full width over that index, and holds every kernel against its plain
-PyTorch version on the card.  Phases, each printing its own lines:
+full width over that index, runs the MoE, RG-LRU and xLSTM layer kinds
+(recurrentgemma-9b, xlstm-350m, dbrx-132b) at full width, and holds
+every kernel against its plain PyTorch version on the card.  Phases,
+each printing its own lines:
 
   1. device: the card's name and power limit (``nvidia-smi``), torch and
      CUDA versions; TF32 off for matrix products and convolutions, and
@@ -85,6 +87,25 @@ PyTorch version on the card.  Phases, each printing its own lines:
      its full forward (B = 2, T = 48, within 2e-3) and (b) the card against
      the CPU at full width cut to 6 layers (logits within 1e-4, greedy
      tokens equal up to the first near tie);
+  lm_kinds. the MoE, RG-LRU and xLSTM layer kinds through the same entry
+     points, bf16 activations over float32 masters from a seeded
+     ``torch.Generator("cuda")``, each model freed before the next:
+     recurrentgemma-9b (38 layers, 9,396,195,328 params: the reference's
+     tree, above its ``param_count()``) and xlstm-350m (24 layers,
+     492,737,584) at full width and depth, dbrx-132b at full width with
+     its depth cut from 40 to 2 layers (7,751,301,120 params, 31.0 GB);
+     each: prefill B = 8, T = 2,048 beside its operations bound (xlstm's
+     T cut only if its eager sLSTM scan would pass 30 s, estimated at
+     T = 64; the scan's device launches a step profiled at T = 32 and 64),
+     decode B = 8 with bf16 caches of 2,112 for 64 steps (p50 /
+     p99 beside the byte bound, one step profiled; dbrx's decode capacity
+     and dropped token-expert pairs); ``RAGServer.generate`` over
+     recurrentgemma-9b as in the lm phase, its ids equal to a direct
+     search and its launches under ``rag_generate_hybrid``; (a) float32
+     decode against the full forward (B = 2, T = 48; dbrx at a capacity
+     that drops nothing), (b) card against CPU at 1-3 layers (prefill and
+     decode within 1e-4), (c) the four new configs' smoke models (llama4
+     only there) card against CPU; the phase's peak memory and seconds;
   6. the brute-force PQ scan: every code scored by ``pq.adc_lookup``,
      filtered, top-10 by two levels of ``kernels.ops.topk_merge``;
   7. card vs CPU on a 20,000-vector index in all five modes;
@@ -147,6 +168,8 @@ from repro_torch.store.faults import FaultPlan  # noqa: E402
 from repro_torch.store.format import write_index  # noqa: E402
 # the re-rank's edge cases and its route's edge, as the card tests make them
 from test_torch_cuda import RERANK_CASES, first_split, rerank_inputs  # noqa: E402
+# a smoke-config LM on the card against the CPU, as the card tests hold it
+from test_torch_cuda import lm_smoke_card_vs_cpu  # noqa: E402
 # a batch's device launches, and the loop without the engine's telemetry hooks
 from test_torch_cuda import bare_search, device_launches  # noqa: E402
 
@@ -176,6 +199,20 @@ DIST_CAP, DIST_TIMEOUT_S = 65_536, 300
 LM_ARCH, LM_PREFILL, LM_DECODE = "gemma3-4b", (8, 2048), (8, 2112, 64)
 LM_REQUESTS, LM_PASSAGE, LM_PROMPT, LM_NEW = 8, 32, 32, 16
 LM_PARITY_BT, LM_CPU_PROMPT, LM_CPU_NEW = (2, 48), 16, 16
+# the lm_kinds phase: each config with its depth cut (None: full depth) and
+# the parameter count of the reference's init_model tree at that depth
+# (tests/test_torch_models.py holds the port's to it; param_count() leaves
+# out the RG-LRU's gate linears and counts the xLSTM blocks by a formula of
+# its own); the model that serves generate; (b)'s depth a config and its
+# prefill T, prompt and new tokens; the smoke configs of (c); the seconds
+# past which the sLSTM's prefill T is cut
+LM_KINDS = (("recurrentgemma-9b", None, 9_396_195_328), ("xlstm-350m", None, 492_737_584),
+            ("dbrx-132b", 2, 7_751_301_120))
+LM_KINDS_GENERATE = "recurrentgemma-9b"
+LM_KINDS_CPU_LAYERS = {"recurrentgemma-9b": 3, "xlstm-350m": 2, "dbrx-132b": 1}
+LM_KINDS_CPU = (8, 4, 16)  # (b): prompt, new tokens, prefill T
+LM_KINDS_SMOKE = ("recurrentgemma-9b", "xlstm-350m", "dbrx-132b", "llama4-maverick-400b-a17b")
+LM_KINDS_PREFILL_CAP_S = 30.0
 REPO = Path(__file__).resolve().parent
 
 
@@ -1443,10 +1480,19 @@ def telemetry_batch(eng, q, targets, card: str, cap, reps: int = 7) -> dict:
         cap.launches["serve_telemetry_" + ("on" if on else "off")] = launches[on]
     require(launches[False] == launches[True],
             f"telemetry on changed the kernel launches: {launches[False]} vs {launches[True]}")
-    dev = {"off": device_launches(lambda: search(False)), "on": device_launches(lambda: search(True)),
-           "bare_loop": device_launches(lambda: bare_search(eng, q, "label", targets, cfg))}
+    # each count is the most of 3 profiles in turns: the profiler can drop a
+    # run's events (one bare-loop profile once counted 17 launches fewer than
+    # the same loop in the same process), never add any
+    runs = {"off": lambda: search(False), "on": lambda: search(True),
+            "bare_loop": lambda: bare_search(eng, q, "label", targets, cfg)}
+    seen = {k: [] for k in runs}
+    for _ in range(3):
+        for k, run in runs.items():
+            seen[k].append(device_launches(run))
+    dev = {k: max(v) for k, v in seen.items()}
     require(dev["off"] == dev["bare_loop"],
-            f"telemetry off launches {dev['off']} on the device, the bare loop {dev['bare_loop']}")
+            f"telemetry off launches {dev['off']} on the device, the bare loop {dev['bare_loop']} "
+            f"(profiles {seen})")
     for k in range(reps):  # off, on, on, off, ...
         for on in ((False, True) if k % 2 == 0 else (True, False)):
             torch.cuda.synchronize()
@@ -1455,7 +1501,7 @@ def telemetry_batch(eng, q, targets, card: str, cap, reps: int = 7) -> dict:
             torch.cuda.synchronize()
             lat[on].append(time.perf_counter() - t0)
     obs.trace.default_tracer().reset()
-    out = {"kernel_launches": launches[False], "device_launches": dev,
+    out = {"kernel_launches": launches[False], "device_launches": dev, "device_profiles": seen,
            "p50_off_ms": float(np.median(lat[False]) * 1e3),
            "p50_on_ms": float(np.median(lat[True]) * 1e3), "pairs": reps,
            "engine_search_spans": on_reg.histogram("trace.span_seconds", span="engine.search").count}
@@ -1577,11 +1623,11 @@ def lm_decode(model, prompts: torch.Tensor, new: int, cache_dtype):
     return torch.stack(toks, dim=1), torch.stack(steps, dim=1)
 
 
-def lm_invariants(cfg, dev, card: str) -> dict:
-    """(a) the decode path against the full forward at full width in
-    float32; (b) the card against the CPU at full width, depth cut to one
-    pattern unit, float32."""
-    out = {}
+def lm_decode_vs_forward(phase: str, cfg, dev, card: str, what: str) -> dict:
+    """(a) the cached decode against the full forward of the float32
+    model of ``cfg`` at full width: every position's logits of a
+    teacher-forced decode of LM_PARITY_BT tokens against the full
+    forward's, within rtol = atol = 2e-3."""
     f32 = dataclasses.replace(cfg, dtype="float32")
     model = zoo.init_params(f32, torch.Generator("cuda").manual_seed(0), device=dev)
     b, t = LM_PARITY_BT
@@ -1593,105 +1639,143 @@ def lm_invariants(cfg, dev, card: str) -> dict:
     _, dec = lm_decode(model, toks, 1, torch.float32)  # the prompt's logits, step by step
     err = float((dec - full[:, :t]).abs().max())
     require(bool(torch.allclose(dec, full[:, :t], rtol=2e-3, atol=2e-3)),
-            f"lm (a): decode vs full forward max |err| {err}")
-    out["a_decode_vs_forward_max_abs_err"] = err
-    log("lm", f"(a) {cfg.name} float32 at full width ({cfg.n_layers} layers), B={b} T={t}: teacher-forced "
-        f"forward_decode == the full forward's logits within rtol = atol = 2e-3 (max |err| "
-        f"{err:.3g}; T < window 1024, so this holds the global/local split) on {card}")
+            f"{phase} (a) {cfg.name}: decode vs full forward max |err| {err}")
+    log(phase, f"(a) {cfg.name} float32 at full width ({cfg.n_layers} layers), B={b} T={t}: "
+        f"teacher-forced forward_decode == the full forward's logits at every position within "
+        f"rtol = atol = 2e-3 (max |err| {err:.3g}; {what}) on {card}")
     del model, hidden, full, dec
     torch.cuda.empty_cache()
+    return {"a_decode_vs_forward_max_abs_err": err}
 
-    cut = dataclasses.replace(f32, n_layers=len(cfg.pattern_unit))
-    log("lm", f"CUT: (b) runs {cfg.name} at full width with the depth cut from {cfg.n_layers} to "
-        f"{cut.n_layers} layers (one pattern unit, {cut.param_count():,} params, "
-        f"{cut.param_count() * 4 / 1e9:.1f} GB in float32) so that the CPU run takes seconds")
-    on_cpu = zoo.init_params(cut, torch.Generator().manual_seed(0), device="cpu")
-    on_card = Transformer(cut, device=dev)
+
+def lm_card_vs_cpu(phase: str, cut, dev, card: str, prompt: int, new: int,
+                   prefill_t: int = 0) -> dict:
+    """(b) the card against the CPU on the float32 model ``cut`` (a config
+    at full width with its depth cut): the weights drawn on the card and
+    copied to the CPU; a prefill of (2, ``prefill_t``) tokens when given
+    (logits within rtol = atol = 1e-4), then a ``prompt``-token prompt
+    and ``new`` greedy tokens through decode (logits within 1e-4, tokens
+    equal up to the first step where the CPU's top-2 logits are within
+    1e-3)."""
+    on_card = zoo.init_params(cut, torch.Generator("cuda").manual_seed(0), device=dev)
+    on_cpu = Transformer(cut, device="cpu")
     with torch.no_grad():
         for pc, pg in zip(on_cpu.parameters(), on_card.parameters()):
-            pg.copy_(pc)
-    prompts = batch_at_step(TokenStreamConfig(cfg.vocab_size, LM_CPU_PROMPT, 2, seed=3), 0)["tokens"]
+            pc.copy_(pg)
+    out = {}
     t0 = time.perf_counter()
-    c_tok, c_log = lm_decode(on_cpu, torch.from_numpy(prompts), LM_CPU_NEW, torch.float32)
+    if prefill_t:
+        toks = batch_at_step(TokenStreamConfig(cut.vocab_size, prefill_t, 2, seed=4), 0)["tokens"]
+        c_pre, _ = on_cpu.forward_prefill(torch.from_numpy(toks))
+        g_pre, _ = on_card.forward_prefill(torch.from_numpy(toks).to(dev))
+        err = float((g_pre.cpu() - c_pre).abs().max())
+        require(bool(torch.allclose(g_pre.cpu(), c_pre, rtol=1e-4, atol=1e-4)),
+                f"{phase} (b) {cut.name}: card vs CPU prefill logits max |err| {err}")
+        out["b_prefill_max_abs_err"] = err
+    prompts = batch_at_step(TokenStreamConfig(cut.vocab_size, prompt, 2, seed=3), 0)["tokens"]
+    c_tok, c_log = lm_decode(on_cpu, torch.from_numpy(prompts), new, torch.float32)
     cpu_s = time.perf_counter() - t0
-    g_tok, g_log = lm_decode(on_card, torch.from_numpy(prompts).to(dev), LM_CPU_NEW, torch.float32)
+    g_tok, g_log = lm_decode(on_card, torch.from_numpy(prompts).to(dev), new, torch.float32)
     g_tok, g_log = g_tok.cpu(), g_log.cpu()
-    top2 = torch.topk(c_log[:, LM_CPU_PROMPT - 1:], 2, dim=-1).values
+    top2 = torch.topk(c_log[:, prompt - 1:], 2, dim=-1).values
     gaps = (top2[..., 0] - top2[..., 1]).min(dim=0).values  # the closest row a step
     close_step = next((i for i, g in enumerate(gaps.tolist()) if g < 1e-3), None)
     # tokens up to that step must be equal; logits up to and with it (the
     # inputs are the same until a token differs)
-    upto = LM_CPU_NEW if close_step is None else close_step
-    same(g_tok[:, :upto], c_tok[:, :upto], "lm (b): card vs CPU greedy tokens")
-    n_log = LM_CPU_PROMPT - 1 + min(upto + 1, LM_CPU_NEW)
+    upto = new if close_step is None else close_step
+    same(g_tok[:, :upto], c_tok[:, :upto], f"{phase} (b) {cut.name}: card vs CPU greedy tokens")
+    n_log = prompt - 1 + min(upto + 1, new)
     err = float((g_log[:, :n_log] - c_log[:, :n_log]).abs().max())
     require(bool(torch.allclose(g_log[:, :n_log], c_log[:, :n_log], rtol=1e-4, atol=1e-4)),
-            f"lm (b): card vs CPU logits max |err| {err}")
+            f"{phase} (b) {cut.name}: card vs CPU logits max |err| {err}")
     out.update(b_card_vs_cpu_max_abs_err=err, b_tokens_equal_steps=upto, b_close_step=close_step,
                b_min_top2_gap=float(gaps.min()), b_cpu_s=cpu_s)
-    log("lm", f"(b) card == CPU at full width, {cut.n_layers} layers, float32, B=2, a "
-        f"{LM_CPU_PROMPT}-token prompt then {LM_CPU_NEW} greedy tokens: logits within rtol = atol "
-        f"= 1e-4 (max |err| {err:.3g}), tokens equal for {upto} steps; first step with the CPU's "
+    pre = (f"prefill B=2 T={prefill_t} logits within rtol = atol = 1e-4 (max |err| "
+           f"{out['b_prefill_max_abs_err']:.3g}); " if prefill_t else "")
+    log(phase, f"(b) {cut.name}: card == CPU at full width, {cut.n_layers} layers, float32: {pre}"
+        f"B=2, a {prompt}-token prompt then {new} greedy tokens: logits within rtol = atol = "
+        f"1e-4 (max |err| {err:.3g}), tokens equal for {upto} steps; first step with the CPU's "
         f"top-2 gap under 1e-3: {close_step} (smallest gap {float(gaps.min()):.3g}); the CPU "
         f"took {cpu_s:.1f} s; on {card}")
+    del on_card
+    torch.cuda.empty_cache()
     return out
 
 
-def lm_phase(eng, q, targets, card: str, cap: Capture) -> dict:
-    """The LM serving path at full width (the module docstring's lm step)."""
-    dev = eng.device
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base_bytes = torch.cuda.memory_allocated()
-    t_phase = time.perf_counter()
-    cfg = get_config(LM_ARCH)
-    t0 = time.perf_counter()
-    model = zoo.init_params(cfg, torch.Generator("cuda").manual_seed(0), device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    require(n_params == cfg.param_count(), f"lm: {n_params:,} params, {cfg.param_count():,} configured")
-    out = {"arch": LM_ARCH, "dtype": cfg.dtype, "n_layers": cfg.n_layers, "params": n_params,
-           "device_bytes": lm_bytes(model), "init_s": time.perf_counter() - t0}
-    log("lm", f"{LM_ARCH} at full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, vocab {cfg.vocab_size:,}), "
-        f"{cfg.dtype} activations over float32 masters, random init from "
-        f"torch.Generator('cuda').manual_seed(0): {n_params:,} params, "
-        f"{out['device_bytes'] / 1e9:.2f} GB on the card, in {out['init_s']:.1f} s")
-    non_embed = n_params - cfg.vocab_size * cfg.d_model  # tied: the embedding once
+def lm_invariants(cfg, dev, card: str) -> dict:
+    """(a) the decode path against the full forward at full width in
+    float32; (b) the card against the CPU at full width, depth cut to one
+    pattern unit, float32."""
+    out = lm_decode_vs_forward("lm", cfg, dev, card, "T < window 1024, so this holds the "
+                               "global/local split")
+    cut = dataclasses.replace(cfg, dtype="float32", n_layers=len(cfg.pattern_unit))
+    log("lm", f"CUT: (b) runs {cfg.name} at full width with the depth cut from {cfg.n_layers} to "
+        f"{cut.n_layers} layers (one pattern unit, {cut.param_count():,} params, "
+        f"{cut.param_count() * 4 / 1e9:.1f} GB in float32) so that the CPU run takes seconds")
+    out.update(lm_card_vs_cpu("lm", cut, dev, card, LM_CPU_PROMPT, LM_CPU_NEW))
+    return out
 
-    # prefill
-    b, t = LM_PREFILL
+
+def lm_ops(cfg, n_params: int, b: int, t: int) -> dict:
+    """The operations of a full-sequence forward of (b, t) tokens, for its
+    bound: the products of every weight a token uses (the routed experts'
+    k of E; the embedding gather none) at the bf16 rate; the attention
+    scores and PV products, the mLSTM's (T, T) products and the sLSTM's
+    recurrent products in float32."""
+    d, v = cfg.d_model, cfg.vocab_size
+    kinds = cfg.layer_kinds
+    idle = kinds.count("moe") * (cfg.n_experts - cfg.moe_top_k) * 3 * d * cfg.moe_d_ff
+    lin = 2 * b * t * (n_params - v * d * (1 if cfg.tie_embeddings else 2) - idle)
+    attn = (kinds.count("attn") + kinds.count("moe")) * 4 * b * cfg.n_heads * t * t * cfg.head_dim
+    mlstm = kinds.count("mlstm") * 2 * b * cfg.n_heads * t * t * (cfg.head_dim + 2 * d // cfg.n_heads)
+    dh = d // cfg.n_heads
+    slstm = kinds.count("slstm") * 2 * b * t * cfg.n_heads * dh * 4 * dh
+    f32 = attn + mlstm + slstm
+    return {"linear_ops": lin, "float32_ops": f32,
+            "bound_s": lin / BF16_OPS_PER_S + f32 / FP32_OPS_PER_S}
+
+
+def lm_prefill_run(phase: str, model, cfg, n_params: int, b: int, t: int, card: str,
+                   warm_t: int | None = None) -> tuple:
+    """``make_prefill_step`` at (b, t), timed after one warm-up call (at
+    ``warm_t`` tokens when given, else the same batch).  Returns (the
+    readings, the batch)."""
     batch = batch_at_step(TokenStreamConfig(cfg.vocab_size, t, b, seed=0), 0)
     prefill = make_prefill_step(cfg)
-    for rep in range(2):  # the first call warms cuBLAS up
+    warm = {"tokens": batch["tokens"][:, :warm_t]} if warm_t else batch
+    for run in (warm, batch):  # the first call warms cuBLAS up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = prefill(model, batch)
+        res = prefill(model, run)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     logits, kv = res["logits"], res["caches"]
+    n_attn = sum(k in ("attn", "moe") for k in cfg.layer_kinds)
     require(logits.shape == (b, 1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
-            f"lm prefill: logits {tuple(logits.shape)} finite={bool(torch.isfinite(logits).all())}")
-    require(len(kv) == cfg.n_layers and kv[0][0].shape == (b, t, cfg.n_kv_heads, cfg.head_dim)
-            and kv[0][0].dtype == torch.bfloat16, "lm prefill: caches")
-    lin_ops = 2 * non_embed * b * t
-    attn_ops = cfg.n_layers * 2 * (2 * b * cfg.n_heads * t * t * cfg.head_dim)
-    bound_s = lin_ops / BF16_OPS_PER_S + attn_ops / FP32_OPS_PER_S
-    out["prefill"] = {"B": b, "T": t, "s": secs, "tokens_per_s": b * t / secs, "bound_s": bound_s,
-                      "bound_linear_s": lin_ops / BF16_OPS_PER_S,
-                      "bound_attention_s": attn_ops / FP32_OPS_PER_S}
-    log("lm", f"prefill B={b} T={t} (make_prefill_step): {secs:.3f} s, "
-        f"{b * t / secs:,.0f} tokens/s; bound {bound_s:.3f} s = {lin_ops / 1e12:.1f} TFLOP of "
-        f"products over 989 TFLOP/s bf16 + {attn_ops / 1e12:.2f} TFLOP of attention in float32 "
-        f"over 67 TFLOP/s; KV {sum(k.numel() + v.numel() for k, v in kv) * 2 / 1e9:.2f} GB, "
-        f"on {card}")
-    del res, logits, kv
+            f"{phase} prefill: logits {tuple(logits.shape)} finite={bool(torch.isfinite(logits).all())}")
+    require(len(kv) == n_attn and all(k.shape == (b, t, cfg.n_kv_heads, cfg.head_dim)
+                                      and k.dtype == torch.bfloat16 for k, _ in kv),
+            f"{phase} prefill: caches")
+    ops = lm_ops(cfg, n_params, b, t)
+    out = {"B": b, "T": t, "s": secs, "tokens_per_s": b * t / secs, **ops}
+    log(phase, f"{cfg.name} prefill B={b} T={t} (make_prefill_step): {secs:.3f} s, "
+        f"{b * t / secs:,.0f} tokens/s; bound {ops['bound_s']:.3f} s = "
+        f"{ops['linear_ops'] / 1e12:.1f} TFLOP of products over 989 TFLOP/s bf16 + "
+        f"{ops['float32_ops'] / 1e12:.2f} TFLOP of attention / mLSTM / sLSTM products in "
+        f"float32 over 67 TFLOP/s; KV of {n_attn} attention layers "
+        f"{sum(k.numel() + v.numel() for k, v in kv) * 2 / 1e9:.2f} GB, on {card}")
+    return out, batch
 
-    # decode
+
+def lm_decode_run(phase: str, model, cfg, n_params: int, first: np.ndarray, card: str,
+                  on_step=None) -> dict:
+    """``make_serve_step`` at LM_DECODE's (B, cache length, steps) with
+    bf16 caches, each step timed; one more step profiled.  ``on_step`` is
+    called after the timed steps with (step, caches, tokens, pos)."""
     b, length, n_steps = LM_DECODE
     step = make_serve_step(cfg)
     caches = model.init_caches(b, length, torch.bfloat16)
-    tok = torch.from_numpy(batch["tokens"][:b, :1]).to(dev)
+    tok = torch.from_numpy(first[:b, :1]).to(model.device)
     lat = []
     for pos in range(n_steps):
         torch.cuda.synchronize()
@@ -1700,35 +1784,42 @@ def lm_phase(eng, q, targets, card: str, cap: Capture) -> dict:
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
         caches, tok = res["caches"], res["next_tokens"]
-    require(bool(torch.isfinite(res["logits"]).all()), "lm decode: logits not finite")
+    require(bool(torch.isfinite(res["logits"]).all()), f"{phase} decode: logits not finite")
     bf16_weights = n_params * 2
     # what each step's per-call casts move: a linear reads its float32 master,
     # writes the bf16 copy and the product reads it back (4 + 2 + 2 bytes a
-    # param); the tied unembedding is cast to bf16 and back to float32 for
-    # the float32-output product (4 + 2 + 2 + 4 + 4)
-    cast_bytes = 8 * non_embed + 16 * cfg.vocab_size * cfg.d_model
+    # param); the unembedding is cast to bf16 and back to float32 for the
+    # float32-output product (4 + 2 + 2 + 4 + 4)
+    embed = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    cast_bytes = 8 * (n_params - embed) + 16 * cfg.vocab_size * cfg.d_model
     lat_ms = np.asarray(lat[1:]) * 1e3  # the first step warms up
-    out["decode"] = {"B": b, "cache_len": length, "steps": n_steps,
-                     "p50_ms": float(np.percentile(lat_ms, 50)),
-                     "p99_ms": float(np.percentile(lat_ms, 99)),
-                     "bound_ms": bf16_weights / HBM_BYTES_PER_S * 1e3,
-                     "cast_bytes_per_step": cast_bytes,
-                     "cast_bound_ms": cast_bytes / HBM_BYTES_PER_S * 1e3}
-    d = out["decode"]
-    d["profile"] = profile_batch(lambda: step(model, caches, tok, n_steps), d["p50_ms"], top=6)
-    require(d["profile"]["device_busy_ms"] > 0, "lm decode: the profiler saw no device time")
-    log("lm", f"decode step profiled: device busy {d['profile']['device_busy_ms']:.2f} ms of the "
-        f"p50 (share {d['profile']['device_busy_share']:.3f}), "
+    d = {"B": b, "cache_len": length, "steps": n_steps,
+         "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99)),
+         "bound_ms": bf16_weights / HBM_BYTES_PER_S * 1e3, "cast_bytes_per_step": cast_bytes,
+         "cast_bound_ms": cast_bytes / HBM_BYTES_PER_S * 1e3}
+    if on_step is not None:
+        on_step(step, caches, tok, n_steps)
+    d["profile"] = profile_batch(lambda: step(model, caches, tok, n_steps + 1), d["p50_ms"], top=6)
+    require(d["profile"]["device_busy_ms"] > 0, f"{phase} decode: the profiler saw no device time")
+    log(phase, f"{cfg.name} decode step profiled: device busy {d['profile']['device_busy_ms']:.2f} "
+        f"ms of the p50 (share {d['profile']['device_busy_share']:.3f}), "
         f"{d['profile']['device_launches']} launches; top kernels "
         f"{json.dumps(d['profile']['top_kernels_ms_calls'])} on {card}")
-    log("lm", f"decode B={b}, bf16 caches of {length} (make_serve_step), {n_steps} steps: p50 "
-        f"{d['p50_ms']:.2f} ms p99 {d['p99_ms']:.2f} ms a step; byte bound {d['bound_ms']:.2f} ms "
-        f"({bf16_weights / 1e9:.2f} GB of bf16 weights over 3.35 TB/s); the per-call casts from "
-        f"the float32 masters move {cast_bytes / 1e9:.1f} GB a step ({d['cast_bound_ms']:.2f} ms "
-        f"at 3.35 TB/s) on {card}")
-    del caches, res
+    log(phase, f"{cfg.name} decode B={b}, bf16 caches of {length} (make_serve_step), {n_steps} "
+        f"steps: p50 {d['p50_ms']:.2f} ms p99 {d['p99_ms']:.2f} ms a step; byte bound "
+        f"{d['bound_ms']:.2f} ms ({bf16_weights / 1e9:.2f} GB of bf16 weights over 3.35 TB/s); "
+        f"the per-call casts from the float32 masters move {cast_bytes / 1e9:.1f} GB a step "
+        f"({d['cast_bound_ms']:.2f} ms at 3.35 TB/s) on {card}")
+    return d
 
-    # generate: retrieval on the 1M index, then prefill-by-decode and greedy decode
+
+def lm_generate(phase: str, path: str, eng, q, targets, cfg, model, card: str,
+                cap: Capture) -> dict:
+    """``RAGServer.generate`` of LM_REQUESTS labelled requests on the 1M
+    index: its retrieved ids and stats equal a direct search bit for bit;
+    its kernel launches counted under ``path``; one decode step (float32
+    caches) profiled."""
+    dev = eng.device
     n = int(eng.codes.shape[0])
     passages = np.random.default_rng(5).integers(0, cfg.vocab_size, (n, LM_PASSAGE)).astype(np.int32)
     search = SearchConfig(mode="gate", **SEARCH)
@@ -1754,41 +1845,77 @@ def lm_phase(eng, q, targets, card: str, cap: Capture) -> dict:
     t0 = time.perf_counter()
     toks, stats = srv.generate(reqs, max_new_tokens=LM_NEW)
     total_s = time.perf_counter() - t0
-    cap.launches["rag_generate"] = {**_build.LAUNCHES, "plain_merges": PLAIN_MERGES[0]}
-    require_launches(cap, "rag_generate", ("pq_lookup", "rerank"),
-                     ("l2_dist", "plain_merges", "fused_traversal"))
+    # the wrapper holds srv's bound method: a cycle through srv that would
+    # keep the model alive after this function until the garbage collector runs
+    del srv.retrieve
+    cap.launches[path] = {**_build.LAUNCHES, "plain_merges": PLAIN_MERGES[0]}
+    require_launches(cap, path, ("pq_lookup", "rerank"), ("l2_dist", "plain_merges", "fused_traversal"))
     require(toks.shape == (LM_REQUESTS, LM_NEW) and toks.dtype == np.int32
-            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size, f"lm generate: {toks}")
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size, f"{phase} generate: {toks}")
     direct = eng.search(q[:LM_REQUESTS], filter_kind="label", filter_params=targets[:LM_REQUESTS],
                         search_config=search)
     same(torch.from_numpy(seen["ids"]), direct.ids[:, :search.result_k].cpu(),
-         "lm generate: retrieved vs direct search ids")
+         f"{phase} generate: retrieved vs direct search ids")
     for f in direct.stats._fields:
-        same(getattr(stats, f), getattr(direct.stats, f).cpu(), f"lm generate: {f} vs direct")
+        same(getattr(stats, f), getattr(direct.stats, f).cpu(), f"{phase} generate: {f} vs direct")
     p_len = LM_PASSAGE * search.result_k + LM_PROMPT
     n_dec = p_len + LM_NEW - 1
     decode_ms = (total_s * 1e3 - seen["ms"]) / n_dec
-    out["generate"] = {"requests": LM_REQUESTS, "prompt_len": p_len, "new": LM_NEW,
-                       "decode_steps": n_dec, "retrieve_ms": seen["ms"],
-                       "decode_ms_per_step": decode_ms, "total_s": total_s,
-                       "launches": cap.launches["rag_generate"]}
-    log("lm", f"RAGServer.generate, {LM_REQUESTS} requests (gate L={SEARCH['search_l']} "
+    g = {"requests": LM_REQUESTS, "prompt_len": p_len, "new": LM_NEW, "decode_steps": n_dec,
+         "retrieve_ms": seen["ms"], "decode_ms_per_step": decode_ms, "total_s": total_s,
+         "launches": cap.launches[path]}
+    log(phase, f"{cfg.name} RAGServer.generate, {LM_REQUESTS} requests (gate L={SEARCH['search_l']} "
         f"W={SEARCH['beam_width']} K={search.result_k}, a label filter each, {LM_PASSAGE}-token "
         f"passages, {LM_PROMPT}-token prompts, {LM_NEW} new tokens): retrieved ids == a direct "
         f"engine.search bit for bit; retrieve {seen['ms']:.1f} ms, {n_dec} decode steps at "
-        f"{decode_ms:.2f} ms a step (float32 caches: float32 from layer 0's attention on), "
-        f"{total_s:.2f} s in all; launches {json.dumps(cap.launches['rag_generate'])} on {card}")
-    g = out["generate"]
+        f"{decode_ms:.2f} ms a step (float32 caches: float32 from the first attention layer on), "
+        f"{total_s:.2f} s in all; launches {json.dumps(cap.launches[path])} on {card}")
     f32_caches = model.init_caches(LM_REQUESTS, p_len + LM_NEW, torch.float32)
     g["profile"] = profile_batch(
         lambda: model.forward_decode(torch.from_numpy(toks[:, :1]).to(dev), f32_caches, p_len),
         decode_ms, top=6)
-    require(g["profile"]["device_busy_ms"] > 0, "lm generate: the profiler saw no device time")
-    log("lm", f"generate's decode step (float32 caches) profiled: device busy "
+    require(g["profile"]["device_busy_ms"] > 0, f"{phase} generate: the profiler saw no device time")
+    log(phase, f"{cfg.name} generate's decode step (float32 caches) profiled: device busy "
         f"{g['profile']['device_busy_ms']:.2f} ms of {decode_ms:.2f} ms (share "
         f"{g['profile']['device_busy_share']:.3f}), {g['profile']['device_launches']} launches; "
         f"top kernels {json.dumps(g['profile']['top_kernels_ms_calls'])} on {card}")
-    del srv, model, f32_caches
+    return g
+
+
+def lm_init(phase: str, cfg, dev, card: str, want_params: int | None = None):
+    """The model of ``cfg`` on the card from ``torch.Generator("cuda")``
+    seeded 0; its parameter count checked against ``want_params`` (default
+    ``cfg.param_count()``)."""
+    t0 = time.perf_counter()
+    model = zoo.init_params(cfg, torch.Generator("cuda").manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    want = cfg.param_count() if want_params is None else want_params
+    require(n_params == want, f"{phase} {cfg.name}: {n_params:,} params, {want:,} expected")
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers, "params": n_params,
+           "param_count": cfg.param_count(), "device_bytes": lm_bytes(model), "init_s": init_s}
+    log(phase, f"{cfg.name} at full width ({cfg.n_layers} layers {'/'.join(cfg.pattern_unit)}, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, vocab "
+        f"{cfg.vocab_size:,}), {cfg.dtype} activations over float32 masters, random init from "
+        f"torch.Generator('cuda').manual_seed(0): {n_params:,} params (param_count() "
+        f"{cfg.param_count():,}), {out['device_bytes'] / 1e9:.2f} GB on the card, in {init_s:.1f} s")
+    return model, n_params, out
+
+
+def lm_phase(eng, q, targets, card: str, cap: Capture) -> dict:
+    """The LM serving path at full width (the module docstring's lm step)."""
+    dev = eng.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    model, n_params, out = lm_init("lm", cfg, dev, card)
+    out["prefill"], batch = lm_prefill_run("lm", model, cfg, n_params, *LM_PREFILL, card)
+    out["decode"] = lm_decode_run("lm", model, cfg, n_params, batch["tokens"], card)
+    out["generate"] = lm_generate("lm", "rag_generate", eng, q, targets, cfg, model, card, cap)
+    del model
     torch.cuda.empty_cache()
 
     out.update(lm_invariants(cfg, dev, card))
@@ -1797,6 +1924,158 @@ def lm_phase(eng, q, targets, card: str, cap: Capture) -> dict:
     log("lm", f"phase {out['phase_s']:.1f} s; peak device memory allocated {out['peak_allocated_gb']:.2f}"
         f" GB above the {base_bytes / 1e9:.2f} GB held before the phase, on {card}")
     print(json.dumps({"lm": out, "card": card}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------- the lm_kinds phase
+def moe_drops(model, run) -> dict:
+    """``run()`` with every MoE layer's routing kept: its capacity, the
+    token-expert pairs routed and those dropped past capacity."""
+    seen, moes = [], [layer.moe for layer in model.layers if getattr(layer, "moe", None) is not None]
+    for moe in moes:
+        def route(xg, real=moe.route):
+            seen.append(real(xg))
+            return seen[-1]
+        moe.route = route
+    try:
+        run()
+    finally:
+        for moe in moes:
+            del moe.route
+    return {"capacity": seen[0].capacity, "layers": len(seen),
+            "pairs": sum(r.kept.numel() for r in seen),
+            "dropped": sum(int((~r.kept).sum()) for r in seen)}
+
+
+def lm_kinds_prefill_t(model, cfg, card: str) -> tuple[int, dict]:
+    """Prefill's T for ``cfg`` and, for a config with sLSTM layers, its scan's
+    launches: LM_PREFILL's T, cut when the eager scan (time linear in T)
+    would take more than LM_KINDS_PREFILL_CAP_S, estimated from a prefill
+    at T = 64; the device launches a scan step, from the profiled launches
+    of prefills at T = 32 and 64 (the rest of the forward launches as many
+    kernels at any T)."""
+    b, t = LM_PREFILL
+    if "slstm" not in cfg.layer_kinds:
+        return t, {}
+    step = make_prefill_step(cfg)
+
+    def tokens(n):
+        return {"tokens": batch_at_step(TokenStreamConfig(cfg.vocab_size, n, b, seed=0), 0)["tokens"]}
+
+    for _ in range(2):  # the second call, after cuBLAS's warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, tokens(64))
+        torch.cuda.synchronize()
+        s64 = time.perf_counter() - t0
+    n_slstm = cfg.layer_kinds.count("slstm")
+    l32, l64 = (device_launches(lambda n=n: step(model, tokens(n))) for n in (32, 64))
+    require(l64 > l32 > 0, f"lm_kinds {cfg.name}: prefill launches at T = 32 / 64: {l32} / {l64}")
+    per_step = (l64 - l32) / (32 * n_slstm)
+    est = s64 * t / 64
+    out = {"slstm_steps": n_slstm * t, "slstm_launches_per_step": per_step,
+           "slstm_launches": round(per_step * n_slstm * t), "launches_t64": l64}
+    log("lm_kinds", f"{cfg.name}: the sLSTM scan runs {n_slstm} layers x T eager steps "
+        f"({n_slstm * t:,} steps at T = {t}) of {per_step:.1f} device launches each "
+        f"(profiled prefills at T = 32 and 64: {l32:,} and {l64:,} launches), so "
+        f"{out['slstm_launches']:,} launches at T = {t}; prefill at T = 64 took {s64:.3f} s, "
+        f"so T = {t} would take about {est:.1f} s on {card}")
+    if est <= LM_KINDS_PREFILL_CAP_S:
+        return t, out
+    cut = max(64, int(LM_KINDS_PREFILL_CAP_S / s64 * 64) // 64 * 64)
+    log("lm_kinds", f"CUT: {cfg.name} prefill T cut from {t} to {cut} (the estimate passes "
+        f"{LM_KINDS_PREFILL_CAP_S:.0f} s)")
+    out["slstm_steps"] = n_slstm * cut
+    out["slstm_launches"] = round(per_step * n_slstm * cut)
+    return cut, out
+
+
+def lm_kinds_model(arch: str, depth, want: int, eng, q, targets, card: str, cap: Capture) -> dict:
+    """One config of the lm_kinds phase at full width (depth cut to
+    ``depth`` layers when given): prefill, decode, ``generate`` for the
+    hybrid model, then invariants (a) and (b)."""
+    dev = eng.device
+    cfg = get_config(arch)
+    if depth:
+        log("lm_kinds", f"CUT: {arch} runs at full width with its depth cut from {cfg.n_layers} to "
+            f"{depth} layers ({want * 4 / 1e9:.2f} GB of float32 masters; all {cfg.n_layers} "
+            f"would hold {cfg.param_count() * 4 / 1e9:.0f} GB, past one card)")
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    model, n_params, out = lm_init("lm_kinds", cfg, dev, card, want)
+    if n_params != cfg.param_count():
+        log("lm_kinds", f"{arch}: {n_params:,} params = the reference's init_model tree; its "
+            f"param_count() formula gives {cfg.param_count():,} "
+            f"({n_params - cfg.param_count():+,})")
+    b, _ = LM_PREFILL
+    t, scan = lm_kinds_prefill_t(model, cfg, card)
+    out["prefill"], batch = lm_prefill_run("lm_kinds", model, cfg, n_params, b, t, card, warm_t=64)
+    out["prefill"].update(scan)
+    drops = {}
+
+    def count_drops(step, caches, tok, pos):
+        if "moe" in cfg.layer_kinds:
+            drops.update(moe_drops(model, lambda: step(model, caches, tok, pos)))
+
+    out["decode"] = lm_decode_run("lm_kinds", model, cfg, n_params, batch["tokens"], card, count_drops)
+    if drops:
+        out["decode"]["moe"] = drops
+        log("lm_kinds", f"{arch} decode MoE: the whole batch is one group, so B = {LM_DECODE[0]}, "
+            f"k = {cfg.moe_top_k}, E = {cfg.n_experts} give capacity {drops['capacity']} an expert; "
+            f"one step routed {drops['pairs']} token-expert pairs over {drops['layers']} layers "
+            f"and dropped {drops['dropped']} past capacity; every expert's products run over its "
+            f"{drops['capacity']} slots, so each step reads every expert's weights, on {card}")
+    if arch == LM_KINDS_GENERATE:
+        out["generate"] = lm_generate("lm_kinds", "rag_generate_hybrid", eng, q, targets, cfg,
+                                      model, card, cap)
+    del model, batch
+    torch.cuda.empty_cache()
+    a_cfg, what = cfg, "T < the window, so this holds the windowed layers whole"
+    if "moe" in cfg.layer_kinds:
+        # capacity = the group's size in both groupings: nothing drops, where
+        # the reference's decode (the batch a group, capacity 1 at B = 2)
+        # drops other pairs than its full forward (a sequence a group)
+        a_cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+        what = (f"capacity_factor {a_cfg.capacity_factor:g} so that no pair drops in either "
+                "grouping")
+    elif "rglru" not in cfg.layer_kinds:
+        what = "the mLSTM's parallel form against its recurrent one, the sLSTM's scan against its steps"
+    out.update(lm_decode_vs_forward("lm_kinds", a_cfg, dev, card, what))
+    n_cut = LM_KINDS_CPU_LAYERS[arch]
+    cut = dataclasses.replace(cfg, dtype="float32", n_layers=n_cut)
+    log("lm_kinds", f"CUT: (b) runs {arch} at full width with the depth cut to {n_cut} layers "
+        f"({'/'.join(cut.layer_kinds)}) so that the CPU run takes seconds")
+    out.update(lm_card_vs_cpu("lm_kinds", cut, dev, card, *LM_KINDS_CPU))
+    return out
+
+
+def lm_kinds_smoke(dev, card: str) -> dict:
+    """(c) the smoke configs of the layer kinds, card against CPU (float32)."""
+    out = {}
+    for arch in LM_KINDS_SMOKE:
+        out[arch] = lm_smoke_card_vs_cpu(dev, arch)
+        log("lm_kinds", f"(c) {arch} smoke config, float32: card == CPU (prefill logits and KV, "
+            f"16 greedy decode steps: tokens equal, logits within rtol 1e-5 and atol 1e-5 of the "
+            f"largest magnitude; max |err| {out[arch]:.3g}) on {card}")
+    return out
+
+
+def lm_kinds_phase(eng, q, targets, card: str, cap: Capture) -> dict:
+    """The MoE, RG-LRU and xLSTM layer kinds at full width (the module
+    docstring's lm_kinds step)."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    t_phase = time.perf_counter()
+    out = {arch: lm_kinds_model(arch, depth, want, eng, q, targets, card, cap)
+           for arch, depth, want in LM_KINDS}
+    out["smoke_card_vs_cpu_max_abs_err"] = lm_kinds_smoke(eng.device, card)
+    out["peak_allocated_gb"] = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("lm_kinds", f"phase {out['phase_s']:.1f} s; peak device memory allocated "
+        f"{out['peak_allocated_gb']:.2f} GB above the {base_bytes / 1e9:.2f} GB held before the "
+        f"phase, on {card}")
+    print(json.dumps({"lm_kinds": out, "card": card}), flush=True)
     return out
 
 
@@ -2274,6 +2553,7 @@ def main(argv=None) -> int:
         cache_phase(eng, path, q, targets, mem_runs, card, cap)
         serve_phase(eng, path, q, targets, card, cap)
         lm_phase(eng, q, targets, card, cap)
+        lm_kinds_phase(eng, q, targets, card, cap)
         scan_phase(eng, q, targets, gt, card, cap)
         del eng, mem_runs
         torch.cuda.empty_cache()

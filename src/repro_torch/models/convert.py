@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import Layer, Transformer
+from repro_torch.models.transformer import Transformer
 
 
 def _layer_tree(tree: dict, cfg: ModelConfig, i: int) -> dict:
@@ -36,17 +36,13 @@ def _map(fn, node):
     return fn(node)
 
 
-def _layer_items(layer: Layer):
-    """(path in the reference's layer tree, the port's parameter) pairs."""
-    out = [(("norm1", "scale"), layer.norm1.scale), (("norm2", "scale"), layer.norm2.scale)]
-    for name in ("wq", "wk", "wv", "wo"):
-        lin = getattr(layer.attn, name)
-        out.append((("attn", name, "w"), lin.w))
-        if lin.b is not None:
-            out.append((("attn", name, "b"), lin.b))
-    if layer.ffn is not None:
-        out += [(("ffn", name, "w"), getattr(layer.ffn, name).w) for name in ("gate", "up", "down")]
-    return out
+def _layer_items(layer: torch.nn.Module):
+    """(path in the reference's layer tree, the port's parameter) pairs:
+    the port's module and parameter names are the reference's keys
+    (``norm1`` / ``attn`` / ``wq`` / ``w``, ``moe`` / ``router`` / ``w_gate``,
+    ``rglru`` / ``lam``, ``mlstm`` / ``norm`` / ``scale``, ``slstm`` /
+    ``r_i``, ...); ``norm2`` exists only in the kinds that have it."""
+    return [(tuple(name.split(".")), p) for name, p in layer.named_parameters()]
 
 
 def _get(tree: dict, path: tuple):

@@ -10,7 +10,11 @@ arithmetic follows the reference op for op:
   * ``linear`` casts the float32 master weight to the activation's dtype
     at every call and rounds the product once to that dtype (a bf16
     ``torch.matmul`` accumulates in float32 and rounds once, as XLA's
-    ``preferred_element_type=float32`` followed by ``astype`` does);
+    ``preferred_element_type=float32`` followed by ``astype`` does); with
+    ``dtype=torch.float32`` (the MoE router, the recurrent gates) the
+    weight is cast to float32 and the input promoted to it, so a bf16
+    input gives a float32 product of its bf16 values, and the bias is
+    added in float32;
   * ``rope`` splits the head into halves (not interleaved pairs),
     rotates in float32 and casts back;
   * the GeLU is the tanh form (``jax.nn.gelu``'s default; ``F.gelu``'s
@@ -52,8 +56,8 @@ class Linear(nn.Module):
         self.b = (nn.Parameter(torch.zeros(out_shape, dtype=torch.float32, device=device),
                                requires_grad=False) if bias else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(x, self.w, self.b)
+    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        return linear(x, self.w, self.b, dtype)
 
 
 class RMSNorm(nn.Module):
@@ -90,13 +94,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """x (..., in) @ w (in, *out) -> (..., *out) in x's dtype: the weight
-    cast to it, the product rounded once to it."""
-    y = torch.matmul(x, w.to(x.dtype).reshape(w.shape[0], -1))
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+           dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x (..., in) @ w (in, *out) -> (..., *out) in ``dtype`` (default x's):
+    the weight cast to it, x promoted to it, the product rounded once to
+    it, then the bias in it."""
+    dt = dtype or x.dtype
+    y = torch.matmul(x.to(dt), w.to(dt).reshape(w.shape[0], -1))
     y = y.reshape(*x.shape[:-1], *w.shape[1:])
     if b is not None:
-        y = y + b.to(x.dtype)
+        y = y + b.to(dt)
     return y
 
 
@@ -149,6 +156,22 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` (XLA's logistic, ``1 / (1 + exp(-x))``)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, ``logaddexp(x, 0)``: ``max(x, 0) +
+    log1p(exp(-|x|))`` (``F.softplus`` returns x past its threshold)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
 def act(name: str):
     """The reference's ``_act``: the tanh-form GeLU for "gelu", else SiLU."""
     return gelu_tanh if name == "gelu" else silu
@@ -159,3 +182,23 @@ def ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch
     """Gated FFN: down(act(gate(x)) * up(x))."""
     h = act(act_name)(linear(x, w_gate)) * linear(x, w_up)
     return linear(h, w_down)
+
+
+def causal_conv(x: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
+                history: torch.Tensor | None = None):
+    """Causal temporal conv of the recurrent blocks (the reference's
+    ``rglru._conv1d`` / ``xlstm._causal_conv``). x (B, T, W), ``conv_w``
+    (cw, W), ``history`` (B, cw-1, W) or None (zeros).  Returns (out
+    (B, T, W), the new history: the last cw-1 inputs), both in x's dtype;
+    the taps are summed in order, each product and sum rounded to it."""
+    cw, t = conv_w.shape[0], x.shape[1]
+    if history is None:
+        pad = torch.zeros((x.shape[0], cw - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = history.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    w = conv_w.to(x.dtype)
+    out = xp[:, 0:t] * w[0]
+    for i in range(1, cw):
+        out = out + xp[:, i:i + t] * w[i]
+    return out + conv_b.to(x.dtype), xp[:, xp.shape[1] - (cw - 1):]

@@ -1,23 +1,31 @@
 """Model assembly for inference: embed, the layer stack, prefill and decode.
 
-Port of ``repro.models.transformer``'s inference half for layer kind
-``"attn"`` (dense attention + gated FFN, global or sliding-window).  The
+Port of ``repro.models.transformer``'s inference half for every layer
+kind: ``"attn"`` (attention + gated FFN, global or sliding-window),
+``"moe"`` (attention + mixture-of-experts FFN), ``"rglru"`` (the RG-LRU
+block + gated FFN), ``"mlstm"`` and ``"slstm"`` (the xLSTM blocks, which
+carry their own projections and have no second norm), one layer class a
+kind as ``apply_layer_train`` / ``apply_layer_decode`` lay them out.  The
 reference groups layers into stacked pattern units under ``lax.scan``
 with rematerialisation; here the layers are an ``nn.ModuleList`` in
 layer order and every forward runs eagerly under
 ``torch.inference_mode`` — no scan, no remat, no sharding layout (one
-device).  The other layer kinds (``moe``, ``rglru``, ``mlstm``,
-``slstm``) raise ``NotImplementedError``: they are later items of the
-port's roadmap, as are training and the loss.
+device).  Training and the loss are later items of the port's roadmap.
 
 Dtypes follow the reference: the weights are float32 masters, cast at
 every use to the activation dtype (``cfg.dtype``); the embedding is
 scaled by ``sqrt(d_model)`` rounded to that dtype first (50.5, not
-50.596, for d_model 2560 in bf16); logits come out in float32.  A
-decode step whose caches are wider than the activations (the reference's
-``generate`` uses float32 caches) promotes the residual stream to the
-wider dtype from the first layer's attention output on, exactly as the
-reference does.
+50.596, for d_model 2560 in bf16); logits come out in float32.  In a
+bf16 full-sequence forward every layer runs on its masters rounded to
+bf16 first, as the reference casts the layer stack early
+(``REPRO_CAST_EARLY``, on by default): the weights consumed in float32
+(the RG-LRU's ``lam`` and gate linears, the xLSTM gates and sLSTM
+recurrent matrices, the MoE router, the norms' scales) are then the
+bf16-rounded masters, which changes their numbers; decode reads the
+float32 masters.  A decode step whose caches are wider than the
+activations (the reference's ``generate`` uses float32 caches) promotes
+the residual stream to the wider dtype from the first attention layer's
+output on, exactly as the reference does.
 """
 from __future__ import annotations
 
@@ -30,40 +38,127 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention, make_cache
 from repro_torch.models.layers import FFN, RMSNorm, normal_init, rms_norm, scalar
+from repro_torch.models.moe import MoE
+from repro_torch.models.rglru import RGLRU, make_rglru_state
+from repro_torch.models.xlstm import MLSTM, SLSTM, make_mlstm_state, make_slstm_state
 
-UNPORTED_KINDS = ("moe", "rglru", "mlstm", "slstm")
 
+class AttnLayer(nn.Module):
+    """An ``"attn"`` or ``"moe"`` layer: pre-norm attention, then a
+    pre-norm gated FFN (``ffn``; none when d_ff is 0) or mixture of
+    experts (``moe``: per sequence in the full forward, the whole batch
+    in decode), each added to the residual stream."""
 
-class Layer(nn.Module):
-    """One ``"attn"`` layer: pre-norm attention and pre-norm gated FFN,
-    each added to the residual stream."""
-
-    def __init__(self, cfg: ModelConfig, window: int | None, *,
+    def __init__(self, cfg: ModelConfig, kind: str, window: int | None, *,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
-        self.window = window
+        self.cfg, self.window = cfg, window
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         self.attn = Attention(cfg, **kw)
         self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
-        self.ffn = FFN(cfg.d_model, cfg.d_ff, cfg.act, **kw) if cfg.d_ff else None
+        self.moe = MoE(cfg, **kw) if kind == "moe" else None
+        self.ffn = (FFN(cfg.d_model, cfg.d_ff, cfg.act, **kw) if kind == "attn" and cfg.d_ff
+                    else None)
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def _mlp(self, x: torch.Tensor, group_by_batch: bool) -> torch.Tensor:
+        if self.moe is not None:
+            return x + self.moe(self.norm2(x), group_by_batch=group_by_batch)[0]
         if self.ffn is None:  # the reference adds zeros
             return x
         return x + self.ffn(self.norm2(x))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         h, kv = self.attn(self.norm1(x), positions, window=self.window)
-        return self._ffn(x + h), kv
+        return self._mlp(x + h, False), kv
 
     def decode(self, x: torch.Tensor, cache: dict, pos: int):
         h, cache = self.attn.decode(self.norm1(x), cache, pos, window=self.window)
-        return self._ffn(x + h), cache
+        return self._mlp(x + h, True), cache
+
+    def make_cache(self, batch: int, max_len: int, dtype, device) -> dict:
+        """A windowed layer's ring holds min(window, max_len) slots, a
+        global layer's max_len."""
+        length = min(self.window, max_len) if self.window else max_len
+        return make_cache(self.cfg, batch, length, dtype, device)
+
+
+class RGLRULayer(nn.Module):
+    """An ``"rglru"`` layer: pre-norm RG-LRU block, then pre-norm gated FFN."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None = None,
+                 device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.cfg = cfg
+        self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.rglru = RGLRU(cfg, **kw)
+        self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.ffn = FFN(cfg.d_model, cfg.d_ff, cfg.act, **kw)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        x = x + self.rglru(self.norm1(x))
+        return x + self.ffn(self.norm2(x)), None
+
+    def decode(self, x: torch.Tensor, state: dict, pos: int):
+        h, state = self.rglru.decode(self.norm1(x), state)
+        x = x + h
+        return x + self.ffn(self.norm2(x)), state
+
+    def make_cache(self, batch: int, max_len: int, dtype, device) -> dict:
+        return make_rglru_state(self.cfg, batch, dtype, device)
+
+
+class XLSTMLayer(nn.Module):
+    """An ``"mlstm"`` or ``"slstm"`` layer: the pre-norm block added to the
+    residual stream (the block carries its own projections and FFN)."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *, generator: torch.Generator | None = None,
+                 device=None):
+        super().__init__()
+        self.cfg, self.kind = cfg, kind
+        self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        block = (MLSTM if kind == "mlstm" else SLSTM)(cfg, generator=generator, device=device)
+        setattr(self, kind, block)  # the reference's tree key: "mlstm" / "slstm"
+
+    @property
+    def block(self) -> nn.Module:
+        return getattr(self, self.kind)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        return x + self.block(self.norm1(x)), None
+
+    def decode(self, x: torch.Tensor, state: dict, pos: int):
+        h, state = self.block.decode(self.norm1(x), state)
+        return x + h, state
+
+    def make_cache(self, batch: int, max_len: int, dtype, device) -> dict:
+        if self.kind == "mlstm":
+            return make_mlstm_state(self.cfg, batch, dtype, device)
+        return make_slstm_state(self.cfg, batch, device)
+
+
+def make_layer(cfg: ModelConfig, kind: str, window: int | None, *,
+               generator: torch.Generator | None = None, device=None) -> nn.Module:
+    """The layer of ``kind`` (the reference's ``init_layer``)."""
+    kw = dict(generator=generator, device=device)
+    if kind in ("attn", "moe"):
+        return AttnLayer(cfg, kind, window, **kw)
+    if kind == "rglru":
+        return RGLRULayer(cfg, **kw)
+    if kind in ("mlstm", "slstm"):
+        return XLSTMLayer(cfg, kind, **kw)
+    raise ValueError(f"layer kind {kind!r}")
+
+
+def rounded_params(layer: nn.Module, dtype: torch.dtype) -> dict:
+    """The layer's float32 masters rounded to ``dtype``, by name (the
+    reference's early cast of the layer stack)."""
+    return {name: p.to(dtype) for name, p in layer.named_parameters()}
 
 
 class Transformer(nn.Module):
-    """The decoder-only LM of ``cfg`` (attention-only configs).
+    """The decoder-only LM of ``cfg``.
 
     ``embed`` (V, D) float32 N(0, 1/D), ``final_norm``, ``unembed`` (D, V)
     unless the embeddings are tied, and ``layers`` in layer order.
@@ -71,17 +166,15 @@ class Transformer(nn.Module):
     card), in an order of this port's own — not the reference's PRNG
     stream; ``models.convert.params_from_reference`` carries reference
     weights over.  With ``generator=None`` the storage is left
-    uninitialised for such a loader."""
+    uninitialised for such a loader; ``device="meta"`` (no generator)
+    builds the shapes alone, so a full-width model is counted without
+    its storage."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None = None,
                  device=None):
         super().__init__()
-        missing = sorted(set(cfg.layer_kinds) & set(UNPORTED_KINDS))
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kinds {missing} are not ported yet (ROADMAP.md, Queue 1 "
-                "item 10a: moe.py / rglru.py / xlstm.py); only 'attn' layers run in repro_torch")
-        device = resolve_device(device)
+        meta = device is not None and torch.device(device).type == "meta"
+        device = torch.device("meta") if meta and generator is None else resolve_device(device)
         self.cfg = cfg
         d, v = cfg.d_model, cfg.vocab_size
         self.embed = nn.Parameter(normal_init((v, d), 1.0 / math.sqrt(d), generator, device),
@@ -90,7 +183,8 @@ class Transformer(nn.Module):
         self.unembed = (None if cfg.tie_embeddings else nn.Parameter(
             normal_init((d, v), 1.0 / math.sqrt(d), generator, device), requires_grad=False))
         self.layers = nn.ModuleList(
-            Layer(cfg, w, generator=generator, device=device) for w in cfg.layer_windows)
+            make_layer(cfg, kind, w, generator=generator, device=device)
+            for kind, w in zip(cfg.layer_kinds, cfg.layer_windows))
 
     @property
     def device(self) -> torch.device:
@@ -122,33 +216,43 @@ class Transformer(nn.Module):
     def forward_hidden(self, tokens: torch.Tensor, prefix_embeds: torch.Tensor | None = None,
                        *, collect_kv: bool = False):
         """Full-sequence forward (the reference's ``forward_train`` without
-        the loss): returns (final-normed hidden (B, T, D), per-layer (k, v)
-        list or None).  ``prefix_embeds`` (B, P, D) is prepended for the
-        vision-stub frontend."""
+        the loss): returns (final-normed hidden (B, T, D), the attention
+        layers' (k, v) in layer order, or None).  ``prefix_embeds``
+        (B, P, D) is prepended for the vision-stub frontend.  In bf16 each
+        layer runs on its masters rounded to bf16, as the reference's
+        default ``REPRO_CAST_EARLY`` runs it."""
         x = self.embed_tokens(tokens)
         if self.cfg.frontend == "vision_stub" and prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         b, t = x.shape[:2]
         positions = torch.arange(t, dtype=torch.int64, device=x.device)[None].expand(b, t)
+        rounded = self.dtype != torch.float32
         kvs = []
         for layer in self.layers:
-            x, kv = layer(x, positions)
-            if collect_kv:
+            if rounded:
+                x, kv = torch.func.functional_call(layer, rounded_params(layer, self.dtype),
+                                                   (x, positions))
+            else:
+                x, kv = layer(x, positions)
+            if collect_kv and kv is not None:
                 kvs.append(kv)
         return rms_norm(x, self.final_norm.scale, self.cfg.norm_eps), (kvs if collect_kv else None)
 
     @torch.inference_mode()
     def forward_prefill(self, tokens: torch.Tensor, prefix_embeds: torch.Tensor | None = None):
-        """Returns (last-token logits (B, 1, V) float32, one (k, v) a layer
-        in layer order, each (B, T, KV, dh) in the model dtype)."""
+        """Returns (last-token logits (B, 1, V) float32, one (k, v) an
+        attention layer (kinds ``attn`` and ``moe``) in layer order, each
+        (B, T, KV, dh) in the model dtype; the recurrent layers' states are
+        not returned, as the reference's ``collect_kv`` returns none)."""
         hidden, kvs = self.forward_hidden(tokens, prefix_embeds, collect_kv=True)
         return self.logits(hidden[:, -1:, :]), kvs
 
     def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16) -> list:
-        """Per-layer decode caches: a windowed layer's holds min(window,
-        max_len) slots, a global layer's max_len."""
-        return [make_cache(self.cfg, batch, min(w, max_len) if w else max_len, dtype, self.device)
-                for w in self.cfg.layer_windows]
+        """Per-layer decode caches, one a layer: KV rings for attention
+        layers (a windowed layer's holds min(window, max_len) slots, a
+        global layer's max_len), recurrent states (dicts of float32
+        tensors, the conv histories in ``dtype``) for the others."""
+        return [layer.make_cache(batch, max_len, dtype, self.device) for layer in self.layers]
 
     @torch.inference_mode()
     def forward_decode(self, tokens: torch.Tensor, caches: list, pos: int):
@@ -159,4 +263,3 @@ class Transformer(nn.Module):
         for layer, cache in zip(self.layers, caches):
             x, _ = layer.decode(x, cache, pos)
         return self.logits(rms_norm(x, self.final_norm.scale, self.cfg.norm_eps)), caches
-

@@ -246,6 +246,18 @@ class MetricsRegistry:
         self.enabled = bool(enabled)
         self._lock = threading.Lock()
         self._families: dict[str, _Family] = {}
+        # held by ``snapshot`` and by a writer's ``atomic`` group of updates,
+        # so no snapshot falls inside a group
+        self._group_lock = threading.RLock()
+
+    def atomic(self):
+        """A context in which a group of updates lands in snapshots all
+        together or not at all: ``snapshot`` reads the families one by one,
+        so without it a whole group (records and unique sectors of one
+        read) can land between two of its reads, and a family read first
+        falls behind one read later (``unique_sectors_read`` above
+        ``records_read``)."""
+        return self._group_lock
 
     def enable(self) -> None:
         self.enabled = True
@@ -331,11 +343,16 @@ class MetricsRegistry:
     def snapshot(self) -> dict:
         """Plain-dict view of every family (the JSON/Prometheus source).
 
-        Each child is snapshotted under its own lock; the result is a
-        consistent-per-child (not globally atomic) view — each child's
-        (value) or (count, sum, buckets) tuple is internally coherent,
-        which is what the mid-flight invariant checks rely on.
+        Each child is snapshotted under its own lock, and the whole view
+        under ``atomic``'s lock: each child's (value) or (count, sum,
+        buckets) tuple is internally coherent, and a group of updates made
+        under ``atomic`` is in the view whole or not at all — what the
+        mid-flight invariant checks rely on.
         """
+        with self._group_lock:
+            return self._snapshot()
+
+    def _snapshot(self) -> dict:
         with self._lock:
             fams = [(f.name, f.kind, list(f.children.values()))
                     for f in self._families.values()]

@@ -13,8 +13,9 @@ from repro_torch.serve.prefill import as_device_tensor
 
 def make_serve_step(cfg: ModelConfig, *, greedy: bool = True):
     """``serve_step(params, caches, tokens, pos)``: ``params`` the port's
-    ``Transformer``, ``caches`` from its ``init_caches`` (updated in place),
-    ``tokens`` (B, 1), ``pos`` the tokens' absolute position (a Python
+    ``Transformer``, ``caches`` from its ``init_caches`` (one a layer: KV
+    rings and recurrent states, updated in place), ``tokens`` (B, 1),
+    ``pos`` the tokens' absolute position (a Python
     int, so no device scalar is read back).  Returns {"logits" (B, 1, V)
     float32, "next_tokens" (B, 1) int32 — the greedy argmax, first index
     on ties; with ``greedy=False`` the input tokens, the caller samples —

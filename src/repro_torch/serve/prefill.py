@@ -20,8 +20,9 @@ def make_prefill_step(cfg: ModelConfig):
     """``prefill_step(params, batch)``: ``params`` the port's
     ``Transformer`` for ``cfg``, ``batch`` {"tokens" (B, T)[,
     "prefix_embeds" (B, P, D)]} as numpy arrays or tensors.  Returns
-    {"logits" (B, 1, V) float32, "caches": one (k, v) a layer in layer
-    order} on the model's device."""
+    {"logits" (B, 1, V) float32, "caches": one (k, v) an attention layer
+    (kinds ``attn`` and ``moe``) in layer order; the recurrent kinds'
+    layers give none} on the model's device."""
 
     def prefill_step(params, batch: dict) -> dict:
         if params.cfg != cfg:

@@ -229,10 +229,11 @@ class RAGServer:
         (R, max_new_tokens) int32 numpy, stats).
 
         As the reference: the prompt is teacher-forced through the decode
-        path one position at a time into float32 caches (on a bf16 model
-        that promotes the residual stream to float32 from the first
-        layer's attention output on), then each step's argmax (first
-        index on ties) is fed back.  The tokens stay on the device until
+        path one position at a time into float32 caches — KV rings and
+        recurrent states, one a layer (on a bf16 model that promotes the
+        residual stream to float32 from the first attention layer's
+        output on) — then each step's argmax (first index on ties) is fed
+        back.  The tokens stay on the device until
         one copy at the end."""
         ids, stats = self.retrieve(requests)
         if not requests:  # nothing to decode — keep the output shapes

@@ -707,10 +707,15 @@ class DiskRecordStore:
             self.deadline_trips += io["deadline_trips"]
             self.degraded_records += n_degraded
         if self._obs.enabled:
-            c = self._obs_counters
-            # records before unique: a snapshot between the two increments
-            # under-counts unique, so unique_sectors_read <= records_read
-            # holds mid-flight too
+            self._obs_read(m, u, io, n_degraded)
+        return vecs, nbrs
+
+    def _obs_read(self, m: int, u: int, io: dict, n_degraded: int) -> None:
+        """One read's ``disk.*`` increments, as one group: a registry
+        snapshot sees all of them or none, so unique_sectors_read <=
+        records_read holds in every snapshot taken mid-flight."""
+        c = self._obs_counters
+        with self._obs.atomic():
             c["records_read"].inc(m)
             c["pages_read"].inc(m * self.pages_per_record)
             c["bytes_read"].inc(m * self.sector_bytes)
@@ -728,7 +733,6 @@ class DiskRecordStore:
                 c["deadline_trips"].inc(io["deadline_trips"])
             if n_degraded:
                 c["degraded_records"].inc(n_degraded)
-        return vecs, nbrs
 
     def _host_ids(self, ids: torch.Tensor) -> np.ndarray:
         """The loop's (B, W) id beam as a host array."""

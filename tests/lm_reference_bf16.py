@@ -24,8 +24,13 @@ import sys
 import numpy as np
 
 # (arch, B, T) of each bf16 run, and the seed of its tokens
-PREFILL = (("gemma3-4b", 2, 40), ("qwen2.5-32b", 2, 24), ("internvl2-2b", 2, 24))
+KINDS = ("recurrentgemma-9b", "xlstm-350m", "dbrx-132b", "llama4-maverick-400b-a17b")
+PREFILL = (("gemma3-4b", 2, 40), ("qwen2.5-32b", 2, 24), ("internvl2-2b", 2, 24)) + tuple(
+    (arch, 2, 24) for arch in KINDS)
 DECODE = ("gemma3-4b", 2, 24)  # bf16 caches, across the window-16 ring's wrap
+DECODE_KINDS = tuple((arch, 2, 20) for arch in KINDS)  # bf16 caches and states
+ARCHS = tuple(dict.fromkeys(a for a, _, _ in PREFILL + (DECODE,) + DECODE_KINDS))
+ATTENTION = ("attn", "moe")  # the layer kinds that hold a KV cache
 SEED = 0
 
 
@@ -67,18 +72,23 @@ def unflatten(flat: dict) -> dict:
 
 
 def per_layer_kv(caches, cfg) -> list:
-    """The reference's prefill caches — per pattern position a tuple of
-    (k, v) stacked over units, then each leftover layer's (k, v) — as one
-    (k, v) a layer in layer order (the port's layout)."""
+    """The reference's prefill caches — a tuple over the pattern's
+    attention positions of (k, v) stacked over units, then each attention
+    leftover's (k, v) — as one (k, v) an attention layer in layer order
+    (the port's layout).  Recurrent layers return no cache."""
     n_unit = len(cfg.pattern_unit)
+    unit_pos = [p for p, kind in enumerate(cfg.pattern_unit) if kind in ATTENTION]
+    stacks, left = (caches[0], iter(caches[1:])) if cfg.n_units else ((), iter(caches))
     out = []
-    for i in range(cfg.n_layers):
+    for i, kind in enumerate(cfg.layer_kinds):
+        if kind not in ATTENTION:
+            continue
         if i < cfg.n_units * n_unit:
             u, pos = divmod(i, n_unit)
-            k, v = caches[0][pos]
+            k, v = stacks[unit_pos.index(pos)]
             out.append((k[u], v[u]))
         else:
-            out.append(caches[1 + i - cfg.n_units * n_unit])
+            out.append(next(left))
     return out
 
 
@@ -101,7 +111,7 @@ def main(params_path: str, out_path: str) -> None:
         flat = dict(z)
     trees = {arch: unflatten({k[len(arch) + 1:]: v for k, v in flat.items()
                               if k.startswith(arch + "/")})
-             for arch in {a for a, _, _ in PREFILL}}
+             for arch in ARCHS}
     res = {}
     for arch, b, t in PREFILL:
         cfg = get_smoke_config(arch)
@@ -116,20 +126,21 @@ def main(params_path: str, out_path: str) -> None:
         for i, (k, v) in enumerate(per_layer_kv(caches, cfg)):
             res[f"{arch}/prefill/k{i}"], res[f"{arch}/prefill/v{i}"] = f32(k), f32(v)
 
-    arch, b, t = DECODE
-    cfg = get_smoke_config(arch)
-    params = trees[arch]
-    toks = tokens(cfg.vocab_size, b, t)
-    caches = tfm.init_caches(cfg, b, t, jnp.bfloat16)
-    step = jax.jit(lambda p, c, tok, pos: tfm.forward_decode(p, cfg, NULL_LAYOUT, tok, c, pos))
-    steps = []
-    for i in range(t):
-        logits, caches = step(params, caches, jnp.asarray(toks[:, i:i + 1]), jnp.int32(i))
-        steps.append(f32(logits))
-    res[f"{arch}/decode/logits"] = np.stack(steps)
-    for i, c in enumerate(caches):
-        res[f"{arch}/decode/k{i}"], res[f"{arch}/decode/v{i}"] = f32(c["k"]), f32(c["v"])
-        res[f"{arch}/decode/pos{i}"] = np.asarray(c["pos"])
+    for arch, b, t in (DECODE,) + DECODE_KINDS:
+        cfg = get_smoke_config(arch)
+        params = trees[arch]
+        toks = tokens(cfg.vocab_size, b, t)
+        caches = tfm.init_caches(cfg, b, t, jnp.bfloat16)
+        step = jax.jit(lambda p, c, tok, pos, cfg=cfg: tfm.forward_decode(p, cfg, NULL_LAYOUT, tok,
+                                                                         c, pos))
+        steps = []
+        for i in range(t):
+            logits, caches = step(params, caches, jnp.asarray(toks[:, i:i + 1]), jnp.int32(i))
+            steps.append(f32(logits))
+        res[f"{arch}/decode/logits"] = np.stack(steps)
+        for i, c in enumerate(caches):
+            for key, val in c.items():
+                res[f"{arch}/decode/{key}{i}"] = np.asarray(val) if key == "pos" else f32(val)
     np.savez(out_path, **res)
 
 

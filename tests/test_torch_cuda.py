@@ -19,9 +19,9 @@ equal to direct search; the stats hook on card tensors equal to the CPU's;
 a telemetry-off batch launching what the bare loop launches; and a 2-rank
 gloo mesh on the card running the distributed step (sharded fetch through
 gloo on CUDA tensors, the ADC and re-rank kernels once a hop) equal to the
-same mesh on the CPU and to the single-host search; the LM's attention-only
-smoke configs (prefill, greedy decode) and ``RAGServer.generate`` on the
-card equal to the CPU in float32.  Within
+same mesh on the CPU and to the single-host search; the LM's smoke
+configs, every layer kind (prefill, greedy decode), and
+``RAGServer.generate`` on the card equal to the CPU in float32.  Within
 ``expanded_tolerance``: the expanded L2 form.  The input
 generators are shared with ``tests/test_torch_kernels.py`` and
 ``tests/test_torch_rerank.py``.
@@ -954,7 +954,8 @@ def read_vectors(path):
 
 # ------------------------------------------------------------ the LM side
 LM_ARCHS = ("gemma3-4b", "gemma-7b", "qwen2.5-32b", "internvl2-2b", "deepseek-coder-33b",
-            "musicgen-medium")
+            "musicgen-medium", "recurrentgemma-9b", "xlstm-350m", "dbrx-132b",
+            "llama4-maverick-400b-a17b")
 
 
 def lm_pair(arch, cuda, dtype="float32"):
@@ -970,14 +971,12 @@ def lm_pair(arch, cuda, dtype="float32"):
     return cfg, cpu, card
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
-def test_card_lm_smoke_configs_equal_cpu(cuda, arch):
-    """Each attention-only smoke config in float32 (TF32 off): prefill
-    logits and per-layer KV, then 16 greedy decode steps fed their own
-    tokens — tokens equal, card vs CPU, and logits and activations within
+def lm_smoke_card_vs_cpu(cuda, arch) -> float:
+    """A smoke config in float32 (TF32 off), card against CPU: prefill
+    logits and the attention layers' KV, then 16 greedy decode steps fed
+    their own tokens — tokens equal, and logits and activations within
     rtol = 1e-5 and atol = 1e-5 times the tensor's largest magnitude
-    (above 1): the summation orders differ, and gemma3-4b's prefill logits
-    (up to about 7) came 2.3e-5 apart on an H100."""
+    (above 1).  Returns the largest logit difference."""
     from repro_torch.serve import make_prefill_step, make_serve_step
 
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -986,12 +985,17 @@ def test_card_lm_smoke_configs_equal_cpu(cuda, arch):
     if cfg.frontend == "vision_stub":
         batch["prefix_embeds"] = np.random.default_rng(2).normal(
             size=(2, cfg.n_prefix_embeds, cfg.d_model)).astype(np.float32) * 0.02
-    def close(got, want):
+    errs = [0.0]
+
+    def close(got, want, logits=False):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
                                    atol=1e-5 * max(1.0, float(want.abs().max())))
+        if logits:
+            errs.append(float((got.cpu() - want).abs().max()))
 
     want, got = make_prefill_step(cfg)(cpu, batch), make_prefill_step(cfg)(card, batch)
-    close(got["logits"], want["logits"])
+    close(got["logits"], want["logits"], True)
+    assert len(got["caches"]) == len(want["caches"])
     for (k, v), (wk, wv) in zip(got["caches"], want["caches"]):
         close(k, wk)
         close(v, wv)
@@ -1001,9 +1005,18 @@ def test_card_lm_smoke_configs_equal_cpu(cuda, arch):
     t_cpu, t_card = tok, tok
     for pos in range(16):
         w, g = step(cpu, c_cpu, t_cpu, pos), step(card, c_card, t_card, pos)
-        close(g["logits"], w["logits"])
+        close(g["logits"], w["logits"], True)
         assert torch.equal(g["next_tokens"].cpu(), w["next_tokens"]), (arch, pos)
         t_cpu, t_card = w["next_tokens"], g["next_tokens"]
+    return max(errs)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_card_lm_smoke_configs_equal_cpu(cuda, arch):
+    """Each smoke config, every layer kind included (``lm_smoke_card_vs_cpu``):
+    the summation orders differ, and gemma3-4b's prefill logits (up to
+    about 7) came 2.3e-5 apart on an H100."""
+    lm_smoke_card_vs_cpu(cuda, arch)
 
 
 def test_card_generate_equals_cpu(cuda, tmp_path):

@@ -59,6 +59,7 @@ EXPECTED = {
         "llama4_maverick", "musicgen_medium", "qwen2_5_32b", "recurrentgemma_9b", "xlstm_350m")),
     "repro_torch.models", "repro_torch.models.layers", "repro_torch.models.attention",
     "repro_torch.models.transformer", "repro_torch.models.zoo", "repro_torch.models.convert",
+    "repro_torch.models.moe", "repro_torch.models.rglru", "repro_torch.models.xlstm",
     "repro_torch.data.tokens", "repro_torch.serve.decode", "repro_torch.serve.prefill",
 }
 

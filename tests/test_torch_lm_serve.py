@@ -15,6 +15,9 @@ six of them).
     reference's on the same sequence (measured 5.4e-5 in float32 and
     2.6e-5 in bf16, abs, at logits up to about 7), while a port that
     kept bf16 through the stack (bf16 caches) is 0.40 away;
+  * ``generate`` over the recurrentgemma-9b smoke model, whose caches
+    mix RG-LRU states and KV rings: the same tokens as the reference in
+    float32 and bf16;
   * an empty batch gives the reference's shapes.
 
 Both packages compute on the same weights: the port's seeded init
@@ -226,3 +229,29 @@ def test_generate_needs_the_model(port_engine, tiny_corpus):
                     search_config=SearchConfig(**SEARCH))
     with pytest.raises(ValueError, match="generate needs params"):
         srv.generate(_requests(queries, 512, RAGRequest))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_hybrid_equals_reference(tiny_engine, port_engine, tiny_corpus, dtype):
+    """``generate`` over the recurrentgemma-9b smoke model (RG-LRU, RG-LRU,
+    windowed attention; 5 layers): the caches are mixed (recurrent states
+    beside KV rings), and the generated tokens equal the reference's
+    exactly in float32 and in bf16 (where the first two RG-LRU layers run
+    in bf16 and the float32 caches promote the stream from layer 2's
+    attention on)."""
+    jcfg = dataclasses.replace(jsmoke("recurrentgemma-9b"), dtype=dtype)
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-9b"), dtype=dtype)
+    model = zoo.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    tree = params_to_reference(model)
+    _, _, queries = tiny_corpus
+    passages = _passages(int(port_engine.codes.shape[0]), cfg.vocab_size)
+    jsrv = JRAGServer(engine=tiny_engine, cfg=jcfg, params=tree, layout=NULL_LAYOUT,
+                      passage_tokens=passages, search_config=JSearchConfig(**SEARCH))
+    srv = RAGServer(engine=port_engine, cfg=cfg, params=model, passage_tokens=passages,
+                    search_config=SearchConfig(**SEARCH))
+    want, _ = jsrv.generate(_requests(queries, cfg.vocab_size, JRequest), max_new_tokens=NEW)
+    got, _ = srv.generate(_requests(queries, cfg.vocab_size, RAGRequest), max_new_tokens=NEW)
+    assert got.dtype == np.int32 and got.shape == (4, NEW)
+    np.testing.assert_array_equal(got, want)
+    caches = model.init_caches(4, 8, torch.float32)
+    assert [sorted(c) for c in caches[:3]] == [["conv", "h"], ["conv", "h"], ["k", "pos", "v"]]

@@ -19,6 +19,17 @@ Tolerances, as np.testing.assert_allclose's rtol = atol:
     6.3e-2 of the norm on these configs, so the bound tells bf16 from
     float32 arithmetic.
 
+The MoE, RG-LRU and xLSTM kinds (recurrentgemma-9b, xlstm-350m,
+dbrx-132b and llama4-maverick smoke configs), measured: float32 prefill
+/ decode logits 8.5e-6 / 8.8e-6, 1.7e-5 / 2.0e-5, 4.5e-6 / 1.1e-5 and
+1.1e-5 / 1.9e-5 apart at most (logits up to 8.1); bf16 prefill 6.9e-3
+of the norm for recurrentgemma (its windowed attention's single-chunk
+PV sum rounds 7 of 3,072 outputs the other way; the RG-LRU layers are
+bit-equal) and 3e-8 to 4e-8 for the others, bf16 decode 4.6e-3, 1.2e-3,
+3e-8 and 3e-8.  The blocks alone (``moe_ffn`` in both groupings, with
+drops and ties; the RG-LRU scan and decode; mLSTM parallel and
+recurrent; the sLSTM scan and decode) hold the float32 tolerance.
+
 The reference runs jitted on the CPU and is shared through module
 fixtures; the wider lattice (gemma-7b, deepseek-coder-33b,
 musicgen-medium) is marked slow.
@@ -43,7 +54,7 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import transformer as tfm  # noqa: E402
 from repro.models import zoo as jzoo  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.models import layers, params_from_reference, params_to_reference, zoo  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
@@ -230,11 +241,15 @@ def _prefill_ref(jcfg, params, batch):
     return host(logits), [(host(k), host(v)) for k, v in bref.per_layer_kv(caches, jcfg)]
 
 
+def n_attention(cfg) -> int:
+    return sum(kind in bref.ATTENTION for kind in cfg.layer_kinds)
+
+
 def _check_prefill(model, batch, want_logits, want_kv, close, close_logits=None):
     logits, kvs = model.forward_prefill(
         torch.from_numpy(batch["tokens"]),
         torch.from_numpy(batch["prefix_embeds"]) if "prefix_embeds" in batch else None)
-    assert logits.dtype == torch.float32 and len(kvs) == model.cfg.n_layers
+    assert logits.dtype == torch.float32 and len(kvs) == len(want_kv) == n_attention(model.cfg)
     (close_logits or close)(logits, want_logits)
     for (k, v), (wk, wv) in zip(kvs, want_kv):
         assert k.dtype == model.dtype
@@ -393,7 +408,7 @@ def bf16_ref(tmp_path_factory, trees):
     in a process of its own, on this module's parameter trees."""
     tmp = tmp_path_factory.mktemp("lm_bf16")
     out, params = str(tmp / "ref.npz"), str(tmp / "params.npz")
-    np.savez(params, **{f"{arch}/{k}": v for arch in {a for a, _, _ in bref.PREFILL}
+    np.savez(params, **{f"{arch}/{k}": v for arch in bref.ARCHS
                         for k, v in bref.flatten(trees(arch)).items()})
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join([os.path.join(REPO, "src"),
@@ -416,7 +431,7 @@ def test_prefill_bf16(bf16_ref, trees, arch, b, t):
     else:
         batch = {"tokens": bref.tokens(cfg.vocab_size, b, t)}
     kv = [(bf16_ref[f"{arch}/prefill/k{i}"], bf16_ref[f"{arch}/prefill/v{i}"])
-          for i in range(cfg.n_layers)]
+          for i in range(n_attention(cfg))]
     _check_prefill(model, batch, bf16_ref[f"{arch}/prefill/logits"], kv, near_norm)
 
 
@@ -436,11 +451,18 @@ def test_decode_bf16_caches(bf16_ref, trees):
 
 
 # ------------------------------------------------------ weights and kinds
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m", "dbrx-132b",
-                                  "llama4-maverick-400b-a17b"])
-def test_unported_layer_kinds_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Transformer(get_smoke_config(arch), device="cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_smoke_config_builds(arch):
+    """Every config's smoke model builds on the CPU, every layer kind
+    included: one module a layer holding its kind's block, and as many
+    parameters as the reference's ``init_model`` tree."""
+    cfg = get_smoke_config(arch)
+    model = Transformer(cfg, device="cpu")
+    assert len(model.layers) == cfg.n_layers
+    for layer, kind in zip(model.layers, cfg.layer_kinds):
+        assert isinstance(getattr(layer, kind), torch.nn.Module), (arch, kind)
+    want = jax.eval_shape(lambda k: tfm.init_model(k, jsmoke(arch))[0], jax.random.PRNGKey(0))
+    assert sum(p.numel() for p in model.parameters()) == sum(a.size for a in jax.tree.leaves(want))
 
 
 def test_weights_round_trip(trees):
@@ -457,11 +479,15 @@ def test_weights_round_trip(trees):
     assert sum(a.size for a in flat) == cfg.param_count()
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "musicgen-medium", "internvl2-2b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "musicgen-medium", "internvl2-2b"]
+                         + list(bref.KINDS))
 def test_port_tree_has_the_reference_layout(arch):
     """The port's weights as a reference tree have the structure and
     shapes of the reference's ``init_model`` (qwen: 2 units of 1 layer
-    with biases; musicgen: an untied unembedding), and carry back exactly."""
+    with biases; musicgen: an untied unembedding; recurrentgemma: 1 unit
+    of (rglru, rglru, attn) + 2 leftovers; xlstm: mlstm / slstm with no
+    norm2; dbrx and llama4: the experts, llama4's shared expert), and
+    carry back exactly."""
     cfg = get_smoke_config(arch)
     model = zoo.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
     tree = params_to_reference(model)
@@ -492,3 +518,283 @@ def test_init_params_from_a_generator():
 
 def test_full_width_config_counts():
     assert get_config("gemma3-4b").param_count() == 3_879_907_840
+
+
+# full-width parameter counts: the reference's ``init_model`` tree (from
+# ``jax.eval_shape``), MoE configs at 2 layers as the card runs them
+FULL_WIDTH = {"recurrentgemma-9b": None, "xlstm-350m": None, "dbrx-132b": 2,
+              "llama4-maverick-400b-a17b": 2}
+
+
+@pytest.mark.parametrize("arch", sorted(FULL_WIDTH))
+def test_full_width_kinds_count_the_reference_tree(arch):
+    """The port's full-width model (built on ``meta``: shapes, no storage)
+    has as many parameters as the reference's tree.  ``param_count()``
+    (copied from the reference) leaves out the RG-LRU's gate linears
+    w_a / w_i and counts one bias too many (2 W^2 - W a layer), and counts
+    the xLSTM blocks by a formula of its own, so it is below the tree
+    there; for the MoE configs it is exact."""
+    cfg = get_config(arch)
+    if FULL_WIDTH[arch]:
+        cfg = dataclasses.replace(cfg, n_layers=FULL_WIDTH[arch])
+    jcfg = dataclasses.replace(jsmoke(arch), **{f.name: getattr(cfg, f.name)
+                                                for f in dataclasses.fields(cfg)})
+    want = jax.eval_shape(lambda k: tfm.init_model(k, jcfg)[0], jax.random.PRNGKey(0))
+    n = sum(p.numel() for p in Transformer(cfg, device="meta").parameters())
+    assert n == sum(a.size for a in jax.tree.leaves(want))
+    if arch == "recurrentgemma-9b":
+        w = cfg.lru_width
+        assert n - cfg.param_count() == cfg.layer_kinds.count("rglru") * (2 * w * w - w)
+    elif arch == "xlstm-350m":
+        assert n > cfg.param_count()
+    else:
+        assert n == cfg.param_count()
+
+
+# ----------------------------------------------------------- the new kinds
+from repro.models import moe as jmoe  # noqa: E402
+from repro.models import rglru as jrglru  # noqa: E402
+from repro.models import xlstm as jxlstm  # noqa: E402
+from repro_torch.models.rglru import linear_scan, make_rglru_state  # noqa: E402
+from repro_torch.models.xlstm import make_mlstm_state, make_slstm_state  # noqa: E402
+
+
+def kind_model(trees, arch, **changes):
+    """(reference cfg, port cfg, tree, port model) in float32 on the
+    arch's smoke weights, with ``changes`` applied to both configs."""
+    jcfg, cfg = f32cfg(arch)
+    jcfg, cfg = dataclasses.replace(jcfg, **changes), dataclasses.replace(cfg, **changes)
+    tree = trees(arch)
+    return jcfg, cfg, tree, params_from_reference(tree, cfg, device="cpu")
+
+
+def ref_state(jstate) -> dict:
+    return {k: torch.from_numpy(np.array(v)) for k, v in jstate.items()}
+
+
+MOE_CASES = {  # (arch, config changes, router change)
+    "drops": ("dbrx-132b", {"capacity_factor": 0.5}, None),
+    "ties": ("dbrx-132b", {}, "equal_columns"),
+    "shared": ("llama4-maverick-400b-a17b", {}, None),
+}
+
+
+@pytest.mark.parametrize("group_by_batch", [False, True])
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_ffn_equals_reference(trees, case, group_by_batch):
+    """``moe_ffn`` per sequence (prefill) and over the whole batch
+    (decode): outputs within the float32 tolerance, the aux losses too.
+    "drops": capacity_factor 0.5 drops pairs past capacity (and keeps
+    others); "ties": all router columns equal, so every probability ties
+    and the top-k is experts 0..k-1, the lower index first as in
+    ``jax.lax.top_k``, with the later tokens dropped; "shared": llama4's
+    top-1 routing plus its shared expert."""
+    arch, changes, router = MOE_CASES[case]
+    jcfg, cfg, tree, model = kind_model(trees, arch, **changes)
+    i = cfg.layer_kinds.index("moe")
+    lp = dict(tfm.layer_params_for(tree, jcfg, i)["moe"])
+    moe = model.layers[i].moe
+    if router == "equal_columns":
+        w = np.repeat(lp["router"]["w"][:, :1], cfg.n_experts, axis=1)
+        lp["router"] = {"w": w}
+        moe.router.w.data.copy_(torch.from_numpy(w))
+    x = _rand((4, 6, cfg.d_model), 31)
+    want, waux = jax.jit(lambda p, x: jmoe.moe_ffn(p, x, jcfg, NULL_LAYOUT,
+                                                   group_by_batch=group_by_batch))(lp, x)
+    with torch.inference_mode():
+        got, aux = moe(torch.from_numpy(x), group_by_batch=group_by_batch)
+        xg = torch.from_numpy(x).reshape(1, 24, -1) if group_by_batch else torch.from_numpy(x)
+        r = moe.route(xg)
+    close_f32(got, want)
+    for k in ("moe_aux", "moe_zloss"):
+        np.testing.assert_allclose(aux[k].item(), float(waux[k]), **F32)
+    if case == "drops":
+        assert 0 < int(r.kept.sum()) < r.kept.numel()
+    if case == "ties":
+        k = cfg.moe_top_k
+        assert (r.experts == torch.arange(k)).all()
+        assert not r.kept.all() and r.kept[:, 0].all()
+
+
+@pytest.mark.parametrize("t", [13, 16])
+def test_rglru_train_and_decode_equal_reference(trees, t):
+    """``rglru_train`` (the parallel scan, odd and even T) and
+    ``rglru_decode`` step by step, against the reference's; the port's
+    scan against a step-by-step loop of the recurrence (float32, within
+    2e-6 of the values' scale), and decode against the full sequence."""
+    jcfg, cfg, tree, model = kind_model(trees, "recurrentgemma-9b")
+    lp = tfm.layer_params_for(tree, jcfg, 0)["rglru"]
+    block = model.layers[0].rglru
+    x = _rand((2, t, cfg.d_model), 32)
+    want = jax.jit(lambda p, x: jrglru.rglru_train(p, x, jcfg, NULL_LAYOUT))(lp, x)
+    tx = torch.from_numpy(x)
+    with torch.inference_mode():
+        got = block(tx)
+        close_f32(got, want)
+        from repro_torch.models.layers import causal_conv
+
+        xi, _ = causal_conv(block.w_rec(tx), block.conv_w, block.conv_b)
+        a, b = block._gates(xi)
+        _, h = linear_scan(a, b)
+        loop, hs = torch.zeros_like(b[:, 0]), []
+        for i in range(t):
+            loop = a[:, i] * loop + b[:, i]
+            hs.append(loop)
+        np.testing.assert_allclose(h.numpy(), torch.stack(hs, 1).numpy(), rtol=2e-6,
+                                   atol=2e-6 * float(h.abs().max()))
+        state = make_rglru_state(cfg, 2, torch.float32)
+        jstate = jrglru.make_rglru_state(jcfg, 2, jnp.float32)
+        step = jax.jit(lambda p, x, s: jrglru.rglru_decode(p, x, s, jcfg, NULL_LAYOUT))
+        for i in range(t):
+            w, jstate = step(lp, x[:, i:i + 1], jstate)
+            g, state = block.decode(tx[:, i:i + 1], state)
+            close_f32(g, w)
+            close_f32(g, got[:, i:i + 1])
+    for k in ("h", "conv"):
+        close_f32(state[k], jstate[k])
+
+
+def test_mlstm_parallel_and_recurrent_equal_reference(trees):
+    """The mLSTM's stabilized parallel form and its recurrent decode
+    against the reference's, and against each other (float32)."""
+    jcfg, cfg, tree, model = kind_model(trees, "xlstm-350m")
+    assert cfg.layer_kinds[0] == "mlstm"
+    lp = tfm.layer_params_for(tree, jcfg, 0)["mlstm"]
+    block = model.layers[0].mlstm
+    x = _rand((2, 12, cfg.d_model), 33)
+    want = jax.jit(lambda p, x: jxlstm.mlstm_train(p, x, jcfg, NULL_LAYOUT))(lp, x)
+    tx = torch.from_numpy(x)
+    state = make_mlstm_state(cfg, 2, torch.float32)
+    jstate = jxlstm.make_mlstm_state(jcfg, 2, jnp.float32)
+    step = jax.jit(lambda p, x, s: jxlstm.mlstm_decode(p, x, s, jcfg, NULL_LAYOUT))
+    with torch.inference_mode():
+        got = block(tx)
+        close_f32(got, want)
+        for i in range(12):
+            w, jstate = step(lp, x[:, i:i + 1], jstate)
+            g, state = block.decode(tx[:, i:i + 1], state)
+            close_f32(g, w)
+            close_f32(g, got[:, i:i + 1])
+    for k in ("c", "n", "m", "conv"):
+        close_f32(state[k], jstate[k])
+
+
+def test_slstm_scan_and_decode_equal_reference(trees):
+    """The sLSTM's T-step scan (with its GeGLU FFN) and its decode against
+    the reference's, and against each other (float32)."""
+    jcfg, cfg, tree, model = kind_model(trees, "xlstm-350m")
+    assert cfg.layer_kinds[1] == "slstm"
+    lp = tfm.layer_params_for(tree, jcfg, 1)["slstm"]
+    block = model.layers[1].slstm
+    x = _rand((2, 12, cfg.d_model), 34)
+    want = jax.jit(lambda p, x: jxlstm.slstm_train(p, x, jcfg, NULL_LAYOUT))(lp, x)
+    tx = torch.from_numpy(x)
+    state = make_slstm_state(cfg, 2)
+    jstate = jxlstm.make_slstm_state(jcfg, 2)
+    step = jax.jit(lambda p, x, s: jxlstm.slstm_decode(p, x, s, jcfg, NULL_LAYOUT))
+    with torch.inference_mode():
+        got = block(tx)
+        close_f32(got, want)
+        for i in range(12):
+            w, jstate = step(lp, x[:, i:i + 1], jstate)
+            g, state = block.decode(tx[:, i:i + 1], state)
+            close_f32(g, w)
+            close_f32(g, got[:, i:i + 1])
+    for k in ("c", "n", "h", "m"):
+        close_f32(state[k], jstate[k])
+
+
+@pytest.mark.parametrize("arch", bref.KINDS)
+def test_prefill_and_decode_kinds_f32(trees, arch):
+    """Whole models of the new kinds in float32: prefill logits and the
+    attention layers' KV, then 20 decode steps into float32 caches
+    (logits at every step, every layer's final state)."""
+    jcfg, cfg, tree, model = kind_model(trees, arch)
+    batch = {"tokens": bref.tokens(cfg.vocab_size, 2, 20)}
+    logits, kv = _prefill_ref(jcfg, tree, batch)
+    _check_prefill(model, batch, logits, kv, close_f32, logits_f32)
+    step = jax.jit(lambda p, c, tok, pos: tfm.forward_decode(p, jcfg, NULL_LAYOUT, tok, c, pos))
+    jc = tfm.init_caches(jcfg, 2, 20, jnp.float32)
+    want = []
+    for i in range(20):
+        lg, jc = step(tree, jc, jnp.asarray(batch["tokens"][:, i:i + 1]), jnp.int32(i))
+        want.append(host(lg))
+    got, caches = _decode(model, batch["tokens"], torch.float32)
+    np.testing.assert_allclose(got, np.stack(want), **F32)
+    for c, w in zip(caches, jc):
+        assert c.keys() == w.keys()
+        for k in c:
+            close_f32(c[k], w[k])
+
+
+@pytest.mark.parametrize("arch,b,t", bref.DECODE_KINDS)
+def test_decode_bf16_kinds(bf16_ref, trees, arch, b, t):
+    """The bf16 models of the new kinds decoding into bf16 caches and
+    states: every step's logits and every final state within 3e-2 of its
+    norm; attention slots' positions exactly."""
+    cfg = get_smoke_config(arch)
+    model = params_from_reference(trees(arch), cfg, device="cpu")
+    got, caches = _decode(model, bref.tokens(cfg.vocab_size, b, t), torch.bfloat16)
+    near_norm(got, bf16_ref[f"{arch}/decode/logits"])
+    for i, c in enumerate(caches):
+        for k, v in c.items():
+            want = bf16_ref[f"{arch}/decode/{k}{i}"]
+            if k == "pos":
+                np.testing.assert_array_equal(v.numpy(), want)
+            elif k == "m":  # -1e30 where a gate never opened, else a log scale
+                np.testing.assert_allclose(host(v), want, rtol=3e-2, atol=3e-2)
+            else:
+                near_norm(v, want)
+
+
+def test_early_cast_changes_bf16_prefill(bf16_ref, trees):
+    """The reference rounds the layer stack's float32 masters to bf16
+    before a bf16 full-sequence forward (``REPRO_CAST_EARLY``, on by
+    default); the weights consumed in float32 (the xLSTM gate linears and
+    biases, the sLSTM's recurrent matrices) then read the rounded values.
+    The port does the same: on the xlstm-350m smoke (no attention, whose
+    bf16 score sums can round the other way) its prefill logits equal the
+    reference's to 4.4e-8 of the norm, and the same prefill reading the
+    float32 masters is 2.2e-2 off (measured)."""
+    arch, b, t = next(p for p in bref.PREFILL if p[0] == "xlstm-350m")
+    cfg = get_smoke_config(arch)
+    model = params_from_reference(trees(arch), cfg, device="cpu")
+    toks = torch.from_numpy(bref.tokens(cfg.vocab_size, b, t))
+    want = bf16_ref[f"{arch}/prefill/logits"]
+    with torch.inference_mode():
+        cast, _ = model.forward_prefill(toks)
+        # the same forward with every layer on its float32 masters
+        x = model.embed_tokens(toks)
+        positions = torch.arange(t)[None].expand(b, t)
+        for layer in model.layers:
+            x, _ = layer(x, positions)
+        x = layers.rms_norm(x, model.final_norm.scale, cfg.norm_eps)
+        uncast = model.logits(x[:, -1:])
+    rel = {k: float(np.linalg.norm(host(v) - want) / np.linalg.norm(want))
+           for k, v in (("cast", cast), ("uncast", uncast))}
+    assert rel["cast"] <= 1e-6 and rel["uncast"] >= 5e-3, rel
+
+
+def test_moe_decode_output_depends_on_the_batch(trees):
+    """The reference's decode routes the whole batch as one capacity group
+    (``group_by_batch``), so a request's output depends on the other
+    requests in its batch; the port copies it.  With every router column
+    equal (each token picks experts 0 and 1) the dbrx smoke's capacity is
+    1 for one token and 2 for a batch of 4: the last token alone keeps both
+    experts, in the batch both its pairs are dropped and its output is 0
+    — in the port and in the reference alike."""
+    jcfg, cfg, tree, model = kind_model(trees, "dbrx-132b")
+    lp = dict(tfm.layer_params_for(tree, jcfg, 0)["moe"])
+    moe = model.layers[0].moe
+    w = np.repeat(lp["router"]["w"][:, :1], cfg.n_experts, axis=1)
+    lp["router"] = {"w": w}
+    moe.router.w.data.copy_(torch.from_numpy(w))
+    x = _rand((4, 1, cfg.d_model), 35)
+    step = jax.jit(lambda p, x: jmoe.moe_ffn(p, x, jcfg, NULL_LAYOUT, group_by_batch=True)[0])
+    with torch.inference_mode():
+        alone = moe(torch.from_numpy(x[-1:]), group_by_batch=True)[0]
+        batched = moe(torch.from_numpy(x), group_by_batch=True)[0]
+    close_f32(alone, step(lp, x[-1:]))
+    close_f32(batched, step(lp, x))
+    assert float(alone.abs().max()) > 0.1
+    assert float(batched[-1].abs().max()) == 0.0

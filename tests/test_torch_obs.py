@@ -21,6 +21,7 @@ reference's output exactly:
   * with telemetry off the stats hook is unreachable.
 """
 import json
+import threading
 
 import numpy as np
 import pytest
@@ -195,6 +196,62 @@ def test_use_registry_swaps_and_restores():
     with obs.use_registry(reg) as got:
         assert got is reg and obs.default_registry() is reg
     assert obs.default_registry() is prev
+
+
+class _ReadThenInterleave:
+    """A counter child whose read (by ``snapshot``) gives ``writer`` a
+    window of 0.5 s to run in another thread before the snapshot moves on
+    to the next family."""
+
+    def __init__(self, inner, writer):
+        self.inner, self.writer, self.threads = inner, writer, []
+
+    @property
+    def labels(self):
+        return self.inner.labels
+
+    @property
+    def value(self):
+        v = self.inner.value
+        t = threading.Thread(target=self.writer, daemon=True)
+        t.start()
+        t.join(timeout=0.5)
+        self.threads.append(t)
+        return v
+
+
+def test_a_disk_read_lands_in_a_snapshot_whole():
+    """``snapshot`` reads the families one by one, ``disk.records_read``
+    before ``disk.unique_sectors_read``; a disk read's increments made
+    between those two reads would show unique above records.  The store
+    makes its increments as one ``atomic`` group, which a snapshot holds
+    off: here a read lands (in another thread) right after the snapshot
+    read ``disk.records_read``, and the snapshot still shows unique <=
+    records (the mid-flight invariant of the serve hammer test)."""
+    from types import SimpleNamespace
+
+    from repro_torch.store.disk import DiskRecordStore
+
+    reg = obs.MetricsRegistry(enabled=True)
+    names = ("records_read", "pages_read", "bytes_read", "unique_sectors_read", "ranges_read",
+             "syscalls", "gap_sectors_read", "fetch_rounds", "read_rounds")
+    store = SimpleNamespace(_obs=reg, pages_per_record=1, sector_bytes=4096,
+                            _obs_counters={n: reg.counter(f"disk.{n}", store="s") for n in names})
+    io = {"ranges": 1, "syscalls": 1, "gap_sectors": 0, "retried_ios": 0, "retry_exhausted": 0,
+          "deadline_trips": 0}
+    DiskRecordStore._obs_read(store, 4, 4, io, 0)  # records == unique == 4
+    fam = reg._families["disk.records_read"]
+    (key, child), = fam.children.items()
+    hook = _ReadThenInterleave(child, lambda: DiskRecordStore._obs_read(store, 3, 3, io, 0))
+    fam.children[key] = hook
+    snap = reg.snapshot()
+    fam.children[key] = child
+    for t in hook.threads:
+        t.join(timeout=5.0)
+    assert not any(t.is_alive() for t in hook.threads)
+    got = {k: snap[f"disk.{k}"]["total"] for k in ("records_read", "unique_sectors_read")}
+    assert got == {"records_read": 4, "unique_sectors_read": 4}, got
+    assert reg.family_total("disk.records_read") == reg.family_total("disk.unique_sectors_read") == 7
 
 
 # ------------------------------------------------------------------- stats
