@@ -7,7 +7,9 @@ tier (synchronous and pipelined), with and without a hot-record cache,
 and the brute-force PQ scan — at SIFT1M scale through the hand-written
 CUDA kernels, serves retrieval-augmented generation with gemma3-4b at
 full width over that index, runs the MoE, RG-LRU and xLSTM layer kinds
-(recurrentgemma-9b, xlstm-350m, dbrx-132b) at full width, and holds
+(recurrentgemma-9b, xlstm-350m, dbrx-132b) at full width, decodes with
+w8a16 weights and the int8 KV cache, trains (the reference's training
+example on its config, and gemma3-4b at full width), and holds
 every kernel against its plain PyTorch version on the card.  Phases,
 each printing its own lines:
 
@@ -106,6 +108,30 @@ each printing its own lines:
      that drops nothing), (b) card against CPU at 1-3 layers (prefill and
      decode within 1e-4), (c) the four new configs' smoke models (llama4
      only there) card against CPU; the phase's peak memory and seconds;
+  lm_variants. gemma3-4b at full width and depth decoding (B = 8, caches
+     of 2,112, 64 steps, ``make_serve_step``) four ways, each model freed
+     before the next: bf16 as the lm phase; w8a16 (``quantize_model`` on
+     the card, layer by layer); the int8 KV cache (``REPRO_KV_INT8=1``);
+     both.  Each: p50 / p99, the bytes a step by count beside the bf16
+     byte bound and a bound at 1 byte a quantised weight, one step
+     profiled (kernel ms, launches, busy share), device bytes.  Then each
+     against the float32 model's cached decode at 6 layers within the
+     reference tests' bound (err < 0.08 scale + 0.5, argmax agreement
+     > 0.85), and the quantised ones card against CPU at 2 layers;
+  train. (a) the reference's training example: ``examples/train_lm.py``'s
+     config (12 x 512, vocab 32,768, float32, 80,753,152 params) through
+     ``launch.train.run`` for 300 steps, B = 8, T = 256, AdamW (weight
+     decay 0.01, warmup 20), checkpointing into the run's temporary
+     directory; the loss falls; a run cut at step 200 and resumed there
+     ends equal to the unbroken run bit for bit (losses and the step-300
+     checkpoint) under ``torch.use_deterministic_algorithms``, set for this
+     part only; the save seconds and the file system; (b) gemma3-4b at
+     full width and depth, bf16 over float32 masters, Adafactor, B = 1,
+     T = 4,096 (TRAIN_4K's sequence, its global batch cut to 1), remat a
+     unit, 5 steps: seconds a step beside the operations bound, tokens/s,
+     peak memory, each step's loss, grad norm and lr, one step profiled;
+     (c) one train step card against CPU: gemma3-4b at full width cut to
+     2 layers (B = 1, T = 128) and the smoke configs of four layer kinds;
   6. the brute-force PQ scan: every code scored by ``pq.adc_lookup``,
      filtered, top-10 by two levels of ``kernels.ops.topk_merge``;
   7. card vs CPU on a 20,000-vector index in all five modes;
@@ -125,6 +151,7 @@ device; without one it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -155,10 +182,17 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import pq_lookup as pqk  # noqa: E402
 from repro_torch.kernels import topk_merge as tkk  # noqa: E402
 from repro_torch.launch import spawn_local  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint import CheckpointConfig, Checkpointer  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs.base import TRAIN_4K, ModelConfig  # noqa: E402
 from repro_torch.data.tokens import TokenStreamConfig, batch_at_step  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import zoo  # noqa: E402
+from repro_torch.models.layers import Linear, quantize_model  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.train import TrainHParams, make_train_state, make_train_step  # noqa: E402
+from repro_torch.train.train_step import load_state_tree, state_tree  # noqa: E402
 from repro_torch.serve import RAGRequest, RAGServer, ServeFrontend, TenantSpec  # noqa: E402
 from repro_torch.serve import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.store.adaptive import AdaptiveRecordCache  # noqa: E402
@@ -168,8 +202,9 @@ from repro_torch.store.faults import FaultPlan  # noqa: E402
 from repro_torch.store.format import write_index  # noqa: E402
 # the re-rank's edge cases and its route's edge, as the card tests make them
 from test_torch_cuda import RERANK_CASES, first_split, rerank_inputs  # noqa: E402
-# a smoke-config LM on the card against the CPU, as the card tests hold it
-from test_torch_cuda import lm_smoke_card_vs_cpu  # noqa: E402
+# a smoke-config LM on the card against the CPU, and one train step, as the
+# card tests hold them
+from test_torch_cuda import lm_smoke_card_vs_cpu, train_step_card_vs_cpu  # noqa: E402
 # a batch's device launches, and the loop without the engine's telemetry hooks
 from test_torch_cuda import bare_search, device_launches  # noqa: E402
 
@@ -213,6 +248,29 @@ LM_KINDS_CPU_LAYERS = {"recurrentgemma-9b": 3, "xlstm-350m": 2, "dbrx-132b": 1}
 LM_KINDS_CPU = (8, 4, 16)  # (b): prompt, new tokens, prefill T
 LM_KINDS_SMOKE = ("recurrentgemma-9b", "xlstm-350m", "dbrx-132b", "llama4-maverick-400b-a17b")
 LM_KINDS_PREFILL_CAP_S = 30.0
+# the lm_variants phase: each decode run's (w8a16 weights, int8 KV cache);
+# the check against the float32 model's cached decode (layers, B, T) and the
+# reference tests' bound (err < rel * scale + abs, argmax agreement above);
+# card against CPU (layers, prompt, new tokens)
+LM_VARIANTS = {"bf16": (False, False), "w8a16": (True, False), "int8_kv": (False, True),
+               "w8a16+int8_kv": (True, True)}
+LM_VARIANTS_CHECK, LM_VARIANTS_BOUND = (6, 2, 16), (0.08, 0.5, 0.85)
+LM_VARIANTS_CPU = (2, 8, 8)
+# the train phase: (a) examples/train_lm.py's config and hyperparameters (its
+# "~100M" is param_count()'s 80,753,152), the launcher's run cut at a step (a
+# run to that step on the whole run's schedule) and resumed; (b) a full-width model: arch, B, T (TRAIN_4K's sequence), steps;
+# (c) card against CPU: the full-width model's depth and (B, T), and the smoke
+# configs of the four layer kinds
+TRAIN_LM_CFG = ModelConfig(name="repro-110m", family="dense", n_layers=12, d_model=512,
+                           n_heads=8, n_kv_heads=4, head_dim=64, d_ff=2048, vocab_size=32_768,
+                           act="silu", dtype="float32")
+TRAIN_LM_PARAMS, TRAIN_LM_STOP = 80_753_152, 200
+TRAIN_LM = dict(steps=300, batch=8, seq_len=256)
+TRAIN_LM_HP = TrainHParams(peak_lr=3e-4, warmup=20, total_steps=300,
+                           opt=OptConfig(name="adamw", weight_decay=0.01))
+TRAIN_BIG = ("gemma3-4b", 1, TRAIN_4K.seq_len, 5)
+TRAIN_CPU = (2, 1, 128)
+TRAIN_SMOKE = ("gemma3-4b", "recurrentgemma-9b", "xlstm-350m", "dbrx-132b")
 REPO = Path(__file__).resolve().parent
 
 
@@ -1482,14 +1540,28 @@ def telemetry_batch(eng, q, targets, card: str, cap, reps: int = 7) -> dict:
             f"telemetry on changed the kernel launches: {launches[False]} vs {launches[True]}")
     # each count is the most of 3 profiles in turns: the profiler can drop a
     # run's events (one bare-loop profile once counted 17 launches fewer than
-    # the same loop in the same process), never add any
+    # the same loop in the same process), never add any; beside it, every
+    # device event by name, those of no measured time too, and the names
+    # whose counts differ between the bare loop and telemetry off
     runs = {"off": lambda: search(False), "on": lambda: search(True),
             "bare_loop": lambda: bare_search(eng, q, "label", targets, cfg)}
     seen = {k: [] for k in runs}
+    by_name = {k: [] for k in runs}
     for _ in range(3):
         for k, run in runs.items():
-            seen[k].append(device_launches(run))
+            timed, names = device_launches(run)
+            seen[k].append(timed)
+            by_name[k].append(names)
     dev = {k: max(v) for k, v in seen.items()}
+    differ = []
+    for i, (off, bare) in enumerate(zip(by_name["off"], by_name["bare_loop"])):
+        d = {n: [off.get(n, 0), bare.get(n, 0)] for n in sorted(set(off) | set(bare))
+             if off.get(n, 0) != bare.get(n, 0)}
+        differ.append(d)
+        log("serve", f"telemetry, profile {i + 1} of 3: device events by name, telemetry off vs the "
+            f"bare loop: {sum(off.values())} vs {sum(bare.values())} (of measured time: "
+            f"{seen['off'][i]} vs {seen['bare_loop'][i]}); names whose counts differ [off, bare]: "
+            f"{json.dumps(d) if d else 'none'} on {card}")
     require(dev["off"] == dev["bare_loop"],
             f"telemetry off launches {dev['off']} on the device, the bare loop {dev['bare_loop']} "
             f"(profiles {seen})")
@@ -1502,6 +1574,7 @@ def telemetry_batch(eng, q, targets, card: str, cap, reps: int = 7) -> dict:
             lat[on].append(time.perf_counter() - t0)
     obs.trace.default_tracer().reset()
     out = {"kernel_launches": launches[False], "device_launches": dev, "device_profiles": seen,
+           "names_differ_off_vs_bare": differ,
            "p50_off_ms": float(np.median(lat[False]) * 1e3),
            "p50_on_ms": float(np.median(lat[True]) * 1e3), "pairs": reps,
            "engine_search_spans": on_reg.histogram("trace.span_seconds", span="engine.search").count}
@@ -1649,10 +1722,11 @@ def lm_decode_vs_forward(phase: str, cfg, dev, card: str, what: str) -> dict:
 
 
 def lm_card_vs_cpu(phase: str, cut, dev, card: str, prompt: int, new: int,
-                   prefill_t: int = 0) -> dict:
+                   prefill_t: int = 0, prepare=None, what: str = "") -> dict:
     """(b) the card against the CPU on the float32 model ``cut`` (a config
     at full width with its depth cut): the weights drawn on the card and
-    copied to the CPU; a prefill of (2, ``prefill_t``) tokens when given
+    copied to the CPU, then ``prepare(model)`` on both when given (w8a16
+    quantisation); a prefill of (2, ``prefill_t``) tokens when given
     (logits within rtol = atol = 1e-4), then a ``prompt``-token prompt
     and ``new`` greedy tokens through decode (logits within 1e-4, tokens
     equal up to the first step where the CPU's top-2 logits are within
@@ -1662,6 +1736,9 @@ def lm_card_vs_cpu(phase: str, cut, dev, card: str, prompt: int, new: int,
     with torch.no_grad():
         for pc, pg in zip(on_cpu.parameters(), on_card.parameters()):
             pc.copy_(pg)
+    if prepare is not None:
+        prepare(on_card)
+        prepare(on_cpu)
     out = {}
     t0 = time.perf_counter()
     if prefill_t:
@@ -1692,7 +1769,8 @@ def lm_card_vs_cpu(phase: str, cut, dev, card: str, prompt: int, new: int,
                b_min_top2_gap=float(gaps.min()), b_cpu_s=cpu_s)
     pre = (f"prefill B=2 T={prefill_t} logits within rtol = atol = 1e-4 (max |err| "
            f"{out['b_prefill_max_abs_err']:.3g}); " if prefill_t else "")
-    log(phase, f"(b) {cut.name}: card == CPU at full width, {cut.n_layers} layers, float32: {pre}"
+    log(phase, f"(b) {cut.name}{f' {what}' if what else ''}: card == CPU at full width, "
+        f"{cut.n_layers} layers, float32: {pre}"
         f"B=2, a {prompt}-token prompt then {new} greedy tokens: logits within rtol = atol = "
         f"1e-4 (max |err| {err:.3g}), tokens equal for {upto} steps; first step with the CPU's "
         f"top-2 gap under 1e-3: {close_step} (smallest gap {float(gaps.min()):.3g}); the CPU "
@@ -1969,7 +2047,7 @@ def lm_kinds_prefill_t(model, cfg, card: str) -> tuple[int, dict]:
         torch.cuda.synchronize()
         s64 = time.perf_counter() - t0
     n_slstm = cfg.layer_kinds.count("slstm")
-    l32, l64 = (device_launches(lambda n=n: step(model, tokens(n))) for n in (32, 64))
+    l32, l64 = (device_launches(lambda n=n: step(model, tokens(n)))[0] for n in (32, 64))
     require(l64 > l32 > 0, f"lm_kinds {cfg.name}: prefill launches at T = 32 / 64: {l32} / {l64}")
     per_step = (l64 - l32) / (32 * n_slstm)
     est = s64 * t / 64
@@ -2076,6 +2154,410 @@ def lm_kinds_phase(eng, q, targets, card: str, cap: Capture) -> dict:
         f"{out['peak_allocated_gb']:.2f} GB above the {base_bytes / 1e9:.2f} GB held before the "
         f"phase, on {card}")
     print(json.dumps({"lm_kinds": out, "card": card}), flush=True)
+    return out
+
+
+# ------------------------------------------------------- the lm_variants phase
+@contextlib.contextmanager
+def kv_int8(on: bool):
+    """``REPRO_KV_INT8`` set to ``on`` while caches are made, then restored."""
+    old = os.environ.get("REPRO_KV_INT8")
+    os.environ["REPRO_KV_INT8"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_KV_INT8"]
+        else:
+            os.environ["REPRO_KV_INT8"] = old
+
+
+def tensor_bytes(model) -> int:
+    """The model's parameters and buffers (the w8a16 codes and scales)."""
+    return sum(t.numel() * t.element_size() for t in (*model.parameters(), *model.buffers()))
+
+
+def variant_bytes(model, cfg, b: int, length: int, kv8: bool) -> dict:
+    """A decode step's bytes by count, beside two bounds.  Moved: a float32
+    linear's master is read, cast to bf16 and read by the product (4 + 2 +
+    2 bytes a weight); a w8a16 linear's codes are read, written as bf16,
+    read and written by the scale multiply and read by the product (1 + 2
+    + 2 + 2 + 2); the unembedding is cast to bf16 and to float32 for its
+    float32-output product (4 + 2 + 2 + 4 + 4); a bf16 cache element is
+    read once (2), an int8 one dequantised as the codes are (1 + 2 + 2 + 2
+    + 2).  Bounds: every weight in bf16 and the bf16 cache, each read
+    once; and every linear weight at 1 byte (with its float32 scales), the
+    rest in bf16, the cache at 1 byte (with its float32 scales) when int8."""
+    lin_f = lin_q = scales = 0
+    for m in model.modules():
+        if isinstance(m, Linear):
+            if m.w is None:
+                lin_q += m.w_q.numel()
+                scales += m.w_s.numel()
+            else:
+                lin_f += m.w.numel()
+    n_weights = sum(p.numel() for p in model.parameters()) + lin_q
+    vd = cfg.vocab_size * cfg.d_model
+    other = n_weights - lin_f - lin_q  # the embeddings and the norms
+    kv_elems = sum(2 * b * (min(w, length) if w else length) * cfg.n_kv_heads * cfg.head_dim
+                   for kind, w in zip(cfg.layer_kinds, cfg.layer_windows) if kind in ("attn", "moe"))
+    kv_scales = kv_elems // cfg.head_dim
+    moved = 8 * lin_f + 9 * lin_q + 16 * vd + (9 if kv8 else 2) * kv_elems
+    bf16 = 2 * n_weights + 2 * kv_elems
+    one = (lin_f + lin_q) + 4 * scales + 2 * other + (kv_elems + 4 * kv_scales if kv8 else 2 * kv_elems)
+    return {"moved_bytes": moved, "moved_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "bound_bf16_ms": bf16 / HBM_BYTES_PER_S * 1e3,
+            "bound_1byte_ms": one / HBM_BYTES_PER_S * 1e3, "kv_elements": kv_elems,
+            "linear_weights": lin_f + lin_q}
+
+
+def variant_model(cfg, dev, w8: bool):
+    """``cfg``'s model from ``torch.Generator(dev)`` seeded 0, quantised
+    layer by layer when ``w8``."""
+    model = zoo.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    return quantize_model(model) if w8 else model
+
+
+def variant_decode(name: str, w8: bool, kv8: bool, cfg, n_params: int, card: str) -> dict:
+    """One decode run of gemma3-4b at full width (LM_DECODE: B = 8, caches
+    of 2,112 asked for in bf16, 64 steps) with the variant on: p50 / p99,
+    bytes a step by count beside the bounds, one step profiled, device
+    bytes."""
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = variant_model(cfg, dev, w8)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    n = sum(p.numel() for p in model.parameters()) + sum(
+        m.w_q.numel() for m in model.modules() if isinstance(m, Linear) and m.w is None)
+    require(n == n_params, f"lm_variants {name}: {n:,} weights, {n_params:,} expected")
+    b, length, n_steps = LM_DECODE
+    step = make_serve_step(cfg)
+    with kv_int8(kv8):
+        caches = model.init_caches(b, length, torch.bfloat16)
+    require(("k_q" in caches[0]) == kv8, f"lm_variants {name}: cache keys {sorted(caches[0])}")
+    tok = torch.from_numpy(batch_at_step(TokenStreamConfig(cfg.vocab_size, 1, b, seed=0), 0)
+                           ["tokens"]).to(dev)
+    lat = []
+    for pos in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step(model, caches, tok, pos)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        tok = res["next_tokens"]
+    require(bool(torch.isfinite(res["logits"]).all()), f"lm_variants {name}: logits not finite")
+    lat_ms = np.asarray(lat[1:]) * 1e3  # the first step warms up
+    d = {"w8a16": w8, "int8_kv": kv8, "build_s": build_s, "device_bytes": tensor_bytes(model),
+         "cache_bytes": sum(t.numel() * t.element_size() for c in caches for t in c.values()),
+         "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99)),
+         **variant_bytes(model, cfg, b, length, kv8)}
+    d["profile"] = profile_batch(lambda: step(model, caches, tok, n_steps), d["p50_ms"], top=6)
+    require(d["profile"]["device_busy_ms"] > 0, f"lm_variants {name}: the profiler saw no device time")
+    log("lm_variants", f"{cfg.name} {name} decode B={b}, caches of {length} ({'int8 + float32 scales' if kv8 else 'bf16'}), "
+        f"{n_steps} steps: p50 {d['p50_ms']:.2f} ms p99 {d['p99_ms']:.2f} ms; by count a step moves "
+        f"{d['moved_bytes'] / 1e9:.1f} GB ({d['moved_ms']:.2f} ms at 3.35 TB/s); bounds: bf16 "
+        f"weights and cache {d['bound_bf16_ms']:.2f} ms, 1 byte a linear weight{' and a cache element' if kv8 else ''} "
+        f"{d['bound_1byte_ms']:.2f} ms; weights on the card {d['device_bytes'] / 1e9:.2f} GB"
+        f"{f' (quantised in {build_s:.1f} s with the init)' if w8 else ''}, caches "
+        f"{d['cache_bytes'] / 1e9:.2f} GB; one step profiled: {d['profile']['device_busy_ms']:.2f} "
+        f"ms of kernels, {d['profile']['device_launches']} launches, busy "
+        f"{d['profile']['device_busy_share']:.3f}; top {json.dumps(d['profile']['top_kernels_ms_calls'])} "
+        f"on {card}")
+    del model, caches, res, step
+    torch.cuda.empty_cache()
+    return d
+
+
+def variant_checks(cfg, card: str) -> dict:
+    """Each variant against the float32 model's cached decode at full width
+    cut to LM_VARIANTS_CHECK's depth (the reference tests' bound), then the
+    quantised variants card against CPU at LM_VARIANTS_CPU's depth."""
+    dev = torch.device("cuda")
+    layers, b, t = LM_VARIANTS_CHECK
+    cut = dataclasses.replace(cfg, dtype="float32", n_layers=layers)
+    log("lm_variants", f"CUT: the checks run {cfg.name} at full width with the depth cut from "
+        f"{cfg.n_layers} to {layers} layers (float32 reference) and to {LM_VARIANTS_CPU[0]} (card "
+        "against CPU)")
+    toks = torch.from_numpy(batch_at_step(TokenStreamConfig(cfg.vocab_size, t, b, seed=2), 0)
+                            ["tokens"]).to(dev)
+    _, want = lm_decode(variant_model(cut, dev, False), toks, 1, torch.float32)
+    rel, abs_, agree_min = LM_VARIANTS_BOUND
+    scale = float(want.abs().max())
+    out = {}
+    for name, (w8, kv8) in LM_VARIANTS.items():
+        vcfg = cut if name != "bf16" else dataclasses.replace(cut, dtype="bfloat16")
+        model = variant_model(vcfg, dev, w8)
+        with kv_int8(kv8):
+            _, got = lm_decode(model, toks, 1, torch.bfloat16 if name == "bf16" else torch.float32)
+        err = float((got.float() - want).abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        require(err < rel * scale + abs_ and agree > agree_min,
+                f"lm_variants {name}: decode vs the float32 model max |err| {err} (scale {scale}), "
+                f"argmax agreement {agree}")
+        out[name] = {"max_abs_err": err, "argmax_agreement": agree}
+        del model
+    torch.cuda.empty_cache()
+    log("lm_variants", f"each variant's decode (B={b}, T={t}, teacher-forced) against the float32 "
+        f"model's cached decode at {layers} layers: max |err| < {rel} x {scale:.3g} + {abs_} and "
+        f"argmax agreement > {agree_min} (the reference tests' bound): "
+        f"{json.dumps(out)} on {card}")
+    n_cpu, prompt, new = LM_VARIANTS_CPU
+    small = dataclasses.replace(cfg, dtype="float32", n_layers=n_cpu)
+    for name, (w8, kv8) in LM_VARIANTS.items():
+        if not (w8 or kv8):
+            continue  # the bf16 run's card-vs-CPU check is the lm phase's (b)
+        if kv8:
+            out[name].update(int8_kv_card_vs_cpu(small, dev, card, prompt + new, w8, name))
+            continue
+        got = lm_card_vs_cpu("lm_variants", small, dev, card, prompt, new,
+                             prepare=quantize_model, what=name)
+        out[name]["card_vs_cpu_max_abs_err"] = got["b_card_vs_cpu_max_abs_err"]
+    return out
+
+
+def int8_kv_card_vs_cpu(cut, dev, card: str, t: int, w8: bool, name: str) -> dict:
+    """The int8 KV cache, card against CPU on the float32 model ``cut``
+    (weights drawn on the card, copied; quantised on both when ``w8``):
+    ``t`` teacher-forced decode steps at B = 2.  A code is a rounding of
+    K / scale, so float32 noise upstream can move one by 1 where the
+    quotient sits at a tie; until the first step whose caches' codes
+    differ, the logits agree within rtol = atol = 1e-4, and a differing
+    code differs by 1."""
+    on_card = zoo.init_params(cut, torch.Generator("cuda").manual_seed(0), device=dev)
+    on_cpu = Transformer(cut, device="cpu")
+    with torch.no_grad():
+        for pc, pg in zip(on_cpu.parameters(), on_card.parameters()):
+            pc.copy_(pg)
+    if w8:
+        quantize_model(on_card)
+        quantize_model(on_cpu)
+    toks = batch_at_step(TokenStreamConfig(cut.vocab_size, t, 2, seed=3), 0)["tokens"]
+    with kv_int8(True):
+        caches = {"card": on_card.init_caches(2, t, torch.float32),
+                  "cpu": on_cpu.init_caches(2, t, torch.float32)}
+    err, first_flip, flips = 0.0, None, 0
+    for pos in range(t):
+        tok = torch.from_numpy(toks[:, pos:pos + 1])
+        g, _ = on_card.forward_decode(tok.to(dev), caches["card"], pos)
+        c, _ = on_cpu.forward_decode(tok, caches["cpu"], pos)
+        step_flips = 0  # this step's codes included: its logits read them
+        for gc, cc in zip(caches["card"], caches["cpu"]):
+            for key in ("k_q", "v_q"):
+                d = (gc[key].cpu().int() - cc[key].int()).abs()
+                require(int(d.max()) <= 1, f"lm_variants {name}: a {key} code differs by {int(d.max())}")
+                step_flips += int(d.sum())
+        if step_flips and first_flip is None:
+            first_flip = pos
+        flips = max(flips, step_flips)
+        if first_flip is None:
+            err = max(err, float((g.cpu() - c).abs().max()))
+            require(bool(torch.allclose(g.cpu(), c, rtol=1e-4, atol=1e-4)),
+                    f"lm_variants {name}: card vs CPU logits at step {pos}, max |err| {err}")
+    log("lm_variants", f"(b) {cut.name} {name}: card == CPU at full width, {cut.n_layers} layers, "
+        f"float32, B=2, {t} teacher-forced steps: logits within rtol = atol = 1e-4 (max |err| "
+        f"{err:.3g}) up to the first step whose int8 codes differ ({first_flip}; then {flips} of "
+        f"the caches' codes differ, each by 1: a rounding at a tie under float32 noise) on {card}")
+    del on_card
+    torch.cuda.empty_cache()
+    return {"card_vs_cpu_max_abs_err": err, "first_code_flip_step": first_flip,
+            "codes_differing": flips}
+
+
+def lm_variants_phase(card: str) -> dict:
+    """The serving variants at full width (the module docstring's
+    lm_variants step)."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    n_params = cfg.param_count()
+    out = {name: variant_decode(name, w8, kv8, cfg, n_params, card)
+           for name, (w8, kv8) in LM_VARIANTS.items()}
+    out["checks"] = variant_checks(cfg, card)
+    out["peak_allocated_gb"] = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("lm_variants", f"phase {out['phase_s']:.1f} s; peak device memory allocated "
+        f"{out['peak_allocated_gb']:.2f} GB above the {base_bytes / 1e9:.2f} GB held before the "
+        f"phase, on {card}")
+    print(json.dumps({"lm_variants": out, "card": card}), flush=True)
+    return out
+
+
+# ------------------------------------------------------------- the train phase
+def checkpoint_writes() -> tuple[list, object]:
+    """Wraps ``Checkpointer._write`` to record (step, seconds) of every
+    write, the background ones too; returns the list and the undo."""
+    writes, real = [], Checkpointer._write
+
+    def timed(self, step, leaves):
+        t0 = time.perf_counter()
+        real(self, step, leaves)
+        writes.append((step, time.perf_counter() - t0))
+
+    Checkpointer._write = timed
+    return writes, lambda: setattr(Checkpointer, "_write", real)
+
+
+def train_example(tmp: str, card: str) -> dict:
+    """(a) The reference's training example: examples/train_lm.py's config
+    through ``launch.train.run`` for 300 steps, unbroken and cut at 200
+    then resumed, under ``torch.use_deterministic_algorithms``."""
+    cfg = TRAIN_LM_CFG
+    n = sum(p.numel() for p in Transformer(cfg, device="meta").parameters())
+    require(n == TRAIN_LM_PARAMS == cfg.param_count(), f"train (a): {n:,} params")
+    dirs = {k: os.path.join(tmp, f"train_{k}") for k in ("whole", "cut")}
+    kw = dict(hp=TRAIN_LM_HP, log_every=100, **TRAIN_LM)
+    writes, undo = checkpoint_writes()
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        whole = launch_train.run(cfg, ckpt_dir=dirs["whole"], **kw)
+        whole_s = time.perf_counter() - t0
+        first = launch_train.run(cfg, ckpt_dir=dirs["cut"], **dict(kw, steps=TRAIN_LM_STOP))
+        cut_steps = Checkpointer(CheckpointConfig(dirs["cut"])).all_steps()
+        rest = launch_train.run(cfg, ckpt_dir=dirs["cut"], **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        undo()
+    steps = TRAIN_LM["steps"]
+    require(len(whole) == steps and whole[-1] < whole[0],
+            f"train (a): the loss did not fall: {whole[0]} -> {whole[-1]}")
+    require(cut_steps[-1] == TRAIN_LM_STOP and len(rest) == steps - TRAIN_LM_STOP,
+            f"train (a): cut run's checkpoints {cut_steps}, resumed for {len(rest)} steps")
+    if first + rest != whole:
+        at = next(i for i, (x, y) in enumerate(zip(first + rest, whole)) if x != y)
+        raise AssertionError(f"train (a): the cut and resumed run's loss at step {at} differs from "
+                             f"the unbroken run's: {(first + rest)[at]} vs {whole[at]}")
+    final = {k: Checkpointer(CheckpointConfig(d)).latest_step() for k, d in dirs.items()}
+    require(final == {"whole": steps, "cut": steps}, f"train (a): final checkpoints {final}")
+    a, b = (os.path.join(d, f"step_{steps:010d}") for d in dirs.values())
+    files = sorted(f for f in os.listdir(a) if f.endswith(".npy"))
+    require(files == sorted(f for f in os.listdir(b) if f.endswith(".npy")), "train (a): files")
+    for f in files:
+        same(torch.from_numpy(np.load(os.path.join(a, f))), torch.from_numpy(np.load(os.path.join(b, f))),
+             f"train (a): final checkpoint {f}, resumed vs unbroken")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(a, f)) for f in files)
+    save_s = [s for _, s in writes]
+    # one more step from the final checkpoint, profiled
+    state = make_train_state(cfg, TRAIN_LM_HP, torch.Generator("cuda").manual_seed(0))
+    state = load_state_tree(state, Checkpointer(CheckpointConfig(dirs["whole"])).restore(
+        state_tree(state)))
+    step = make_train_step(cfg, TRAIN_LM_HP)
+    batch = batch_at_step(TokenStreamConfig(cfg.vocab_size, TRAIN_LM["seq_len"], TRAIN_LM["batch"]),
+                          steps)
+    step(state, batch)  # warm
+    prof = profile_batch(lambda: step(state, batch), whole_s / steps * 1e3, top=6)
+    del state, step
+    out = {"params": n, "steps": steps, "first_loss": whole[0], "last_loss": whole[-1],
+           "losses_every_50": whole[::50], "s_per_step": whole_s / steps, "run_s": whole_s,
+           "tokens_per_s": steps * TRAIN_LM["batch"] * TRAIN_LM["seq_len"] / whole_s,
+           "resumed_at": TRAIN_LM_STOP, "resume_equal": "bit for bit (deterministic algorithms)",
+           "checkpoint_bytes": ckpt_bytes, "checkpoint_writes": len(writes),
+           "save_s_median": float(np.median(save_s)), "save_s_max": max(save_s),
+           "cut_checkpoints": cut_steps, "fs": fs_type(tmp), "profile": prof}
+    log("train", f"(a) examples/train_lm.py's config ({cfg.n_layers} x {cfg.d_model}, vocab "
+        f"{cfg.vocab_size:,}, float32, {n:,} params = param_count()) through launch.train.run, "
+        f"B={TRAIN_LM['batch']} T={TRAIN_LM['seq_len']}, AdamW (weight decay "
+        f"{TRAIN_LM_HP.opt.weight_decay}, warmup {TRAIN_LM_HP.warmup}), {steps} steps in "
+        f"{whole_s:.1f} s ({out['s_per_step'] * 1e3:.1f} ms a step with the loss read back each "
+        f"step and the saves, {out['tokens_per_s']:,.0f} tokens/s): loss {whole[0]:.4f} -> "
+        f"{whole[-1]:.4f} (every 50 steps {[round(x, 4) for x in whole[::50]]}); cut at "
+        f"{TRAIN_LM_STOP} (checkpoints {cut_steps}) and resumed there: the last "
+        f"{steps - TRAIN_LM_STOP} losses and the step-{steps} checkpoint equal the unbroken run's "
+        f"bit for bit under torch.use_deterministic_algorithms(True); {len(writes)} checkpoint "
+        f"writes of {ckpt_bytes / 1e9:.2f} GB, median {out['save_s_median']:.2f} s, most "
+        f"{out['save_s_max']:.2f} s, to {out['fs']} ({tmp}); one step profiled: "
+        f"{prof['device_busy_ms']:.1f} ms of kernels, {prof['device_launches']} launches, busy "
+        f"{prof['device_busy_share']:.3f} of a step; top {json.dumps(prof['top_kernels_ms_calls'])} "
+        f"on {card}")
+    return out
+
+
+def train_full_width(card: str) -> dict:
+    """(b) gemma3-4b at full width and depth: bf16 activations over float32
+    masters, Adafactor, per-unit remat, TRAIN_BIG's (B, T) for its steps."""
+    arch, b, t, n_steps = TRAIN_BIG
+    cfg = get_config(arch)
+    log("train", f"CUT: (b) {arch} trains at TRAIN_4K's sequence ({t}) with its global batch cut "
+        f"from {TRAIN_4K.global_batch} to {b} (one card), for {n_steps} steps")
+    hp = TrainHParams(peak_lr=3e-4, warmup=max(n_steps // 10, 1), total_steps=n_steps,
+                      opt=OptConfig(name="adafactor"))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = make_train_state(cfg, hp, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in state.params.parameters())
+    require(n == cfg.param_count(), f"train (b): {n:,} params")
+    step = make_train_step(cfg, hp)
+    ds = TokenStreamConfig(cfg.vocab_size, t, b, seed=0)
+    rows = []
+    for i in range(n_steps):
+        batch = batch_at_step(ds, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rows.append({"s": time.perf_counter() - t0, **{k: float(v) for k, v in m.items()}})
+        require(all(np.isfinite(v) for v in rows[-1].values()), f"train (b) step {i}: {rows[-1]}")
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    s_step = float(np.median([r["s"] for r in rows[1:]]))  # the first step warms up
+    ops = lm_ops(cfg, n, b, t)
+    fwd = ops["linear_ops"] + ops["float32_ops"] + 2 * b * t * cfg.d_model * cfg.vocab_size
+    bound_s = 4 * fwd / BF16_OPS_PER_S  # forward, recompute, backward (2x)
+    prof = profile_batch(lambda: step(state, batch_at_step(ds, n_steps)), s_step * 1e3, top=8)
+    out = {"arch": arch, "params": n, "B": b, "T": t, "opt": "adafactor", "init_s": init_s,
+           "steps": rows, "s_per_step": s_step, "bound_s": bound_s, "forward_ops": fwd,
+           "tokens_per_s": b * t / s_step, "peak_allocated_gb": peak, "profile": prof}
+    log("train", f"(b) {arch} at full width and depth ({n:,} params), bf16 over float32 masters, "
+        f"Adafactor, B={b} T={t}, remat a unit: {s_step:.3f} s a step (median of steps 2-{n_steps}) "
+        f"against the operations bound {bound_s:.3f} s ({fwd / 1e12:.1f} TFLOP forward x 4 with "
+        f"the recompute and the backward, at 989 TFLOP/s), {out['tokens_per_s']:,.0f} tokens/s; "
+        f"steps (s, loss, grad norm, lr): "
+        f"{[(round(r['s'], 3), round(r['loss'], 4), round(r['grad_norm'], 3), r['lr']) for r in rows]}; "
+        f"peak {peak:.2f} GB above the {base / 1e9:.2f} GB held before; one step profiled: "
+        f"{prof['device_busy_ms']:.1f} ms of kernels, {prof['device_launches']} launches, busy "
+        f"{prof['device_busy_share']:.3f}; top {json.dumps(prof['top_kernels_ms_calls'])} on {card}")
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(tmp: str, card: str) -> dict:
+    """Training on one device (the module docstring's train step)."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    t_phase = time.perf_counter()
+    out = {"example": train_example(tmp, card), "full_width": train_full_width(card), "card_vs_cpu": {}}
+    n_cpu, b, t = TRAIN_CPU
+    arch = TRAIN_BIG[0]
+    cut = dataclasses.replace(get_config(arch), dtype="float32", n_layers=n_cpu)
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    out["card_vs_cpu"][f"{arch} ({n_cpu} layers)"] = train_step_card_vs_cpu(dev, cut, b, t, seed=0)
+    for a in TRAIN_SMOKE:
+        out["card_vs_cpu"][f"{a} smoke"] = train_step_card_vs_cpu(
+            dev, dataclasses.replace(get_smoke_config(a), dtype="float32"), 2, 32, seed=1)
+    log("train", f"(c) one Adafactor step, card == CPU (float32, TF32 off; loss and grad norm "
+        f"within 1e-4, each updated leaf within 1e-4 of its largest magnitude): {arch} at full "
+        f"width cut to {n_cpu} layers, B={b} T={t}, and the smoke configs of "
+        f"{', '.join(TRAIN_SMOKE)} (B=2 T=32): {json.dumps(out['card_vs_cpu'])}; "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    out["peak_allocated_gb"] = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("train", f"phase {out['phase_s']:.1f} s; peak device memory allocated "
+        f"{out['peak_allocated_gb']:.2f} GB above the {base_bytes / 1e9:.2f} GB held before the "
+        f"phase, on {card}")
+    print(json.dumps({"train": out, "card": card}), flush=True)
     return out
 
 
@@ -2493,6 +2975,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # cuBLAS's deterministic workspace, set before the first product: the
+    # train phase's resume check runs under torch.use_deterministic_algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2554,6 +3039,8 @@ def main(argv=None) -> int:
         serve_phase(eng, path, q, targets, card, cap)
         lm_phase(eng, q, targets, card, cap)
         lm_kinds_phase(eng, q, targets, card, cap)
+        lm_variants_phase(card)
+        train_phase(tmp, card)
         scan_phase(eng, q, targets, gt, card, cap)
         del eng, mem_runs
         torch.cuda.empty_cache()

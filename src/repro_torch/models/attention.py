@@ -17,17 +17,27 @@ ring's wrap.  The decode PV product has no float32 output type in the
 reference: its dtype is the promotion of the probabilities cast to the
 activation dtype and the cache's dtype, and so it is here.
 
+With ``REPRO_KV_INT8=1`` when the cache is made (the reference's
+``kv_cache_quantized``), the cache holds int8 codes ``k_q`` / ``v_q`` and
+float32 scales ``k_s`` / ``v_s`` a (slot, head), the new token's written
+in place at its slot as the bf16 path writes it; decode dequantises the
+whole cache to the activation dtype at every step, as the reference
+does, so a bf16 model's PV product stays bf16 however the cache was
+asked for (no promotion to float32).
+
 GQA is computed with grouped einsums — K/V are never materialised per
 query head.  ``F.scaled_dot_product_attention`` is not used: it masks
 with -inf and rounds the scores its own way.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import Linear, linear, rope, rope_freq, scalar
+from repro_torch.models.layers import Linear, rope, rope_freq, scalar
 
 NEG_INF = -1e30
 
@@ -63,7 +73,7 @@ class Attention(nn.Module):
 
     def _out_proj(self, o: torch.Tensor) -> torch.Tensor:
         b, t = o.shape[:2]
-        return linear(o.reshape(b, t, self.cfg.n_heads * self.cfg.head_dim), self.wo.w)
+        return self.wo(o.reshape(b, t, self.cfg.n_heads * self.cfg.head_dim))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *, window: int | None,
                 kv_chunk: int = 512):
@@ -117,12 +127,21 @@ class Attention(nn.Module):
         b = x.shape[0]
         positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
         q, k_new, v_new = self._qkv(x, positions)  # q (B,1,KV,G,dh)
-        k, v, cpos = cache["k"], cache["v"], cache["pos"]
-        length = k.shape[1]
+        cpos = cache["pos"]
+        quantized = "k_q" in cache
+        length = cpos.shape[0]
         slot = pos % length if window is not None else pos
         cpos[slot] = pos
-        k[:, slot] = k_new[:, 0].to(k.dtype)
-        v[:, slot] = v_new[:, 0].to(v.dtype)
+        if quantized:
+            for name, new in (("k", k_new), ("v", v_new)):
+                cache[name + "_q"][:, slot], cache[name + "_s"][:, slot] = quant_kv(new[:, 0])
+            dt = x.dtype
+            k = cache["k_q"].to(dt) * cache["k_s"][..., None].to(dt)
+            v = cache["v_q"].to(dt) * cache["v_s"][..., None].to(dt)
+        else:
+            k, v = cache["k"], cache["v"]
+            k[:, slot] = k_new[:, 0].to(k.dtype)
+            v[:, slot] = v_new[:, 0].to(v.dtype)
         s = torch.einsum("btkgd,bskd->bkgts", q.float(), k.float())  # (B,KV,G,1,S) f32
         valid = (cpos >= 0) & (cpos <= pos)
         if window is not None:
@@ -135,12 +154,40 @@ class Attention(nn.Module):
         return self._out_proj(o), cache
 
 
+def kv_cache_quantized() -> bool:
+    """The int8 KV cache switch, ``REPRO_KV_INT8=1``, read when a cache is
+    made (the reference's name and reading)."""
+    return os.environ.get("REPRO_KV_INT8", "0") == "1"
+
+
+def quant_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., dh) -> (int8 codes, float32 scales (...)): ``scale = max |x|
+    / 127`` over dh, codes ``round(x / max(scale, 1e-9))`` clipped to
+    +-127 (the reference's ``_quant_kv``; its eps is 1e-9, the weights'
+    1e-12)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = amax / torch.full_like(amax, 127.0)  # a true division on the card too
+    q = torch.round(xf / torch.clamp_min(scale[..., None], 1e-9))
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
 def make_cache(cfg: ModelConfig, batch: int, length: int, dtype=torch.bfloat16,
                device=None) -> dict:
     """KV cache for one attention layer: ``k`` / ``v`` (B, length, KV, dh)
-    zeros and ``pos`` (length,) int32, each slot's absolute position (-1:
-    empty)."""
+    zeros in ``dtype`` and ``pos`` (length,) int32, each slot's absolute
+    position (-1: empty).  With ``REPRO_KV_INT8=1`` (``dtype`` unused):
+    int8 ``k_q`` / ``v_q`` (B, length, KV, dh) and float32 ``k_s`` /
+    ``v_s`` (B, length, KV) zeros beside ``pos``."""
     kv, dh = cfg.n_kv_heads, cfg.head_dim
+    if kv_cache_quantized():
+        codes = dict(dtype=torch.int8, device=device)
+        scales = dict(dtype=torch.float32, device=device)
+        return {"k_q": torch.zeros((batch, length, kv, dh), **codes),
+                "k_s": torch.zeros((batch, length, kv), **scales),
+                "v_q": torch.zeros((batch, length, kv, dh), **codes),
+                "v_s": torch.zeros((batch, length, kv), **scales),
+                "pos": torch.full((length,), -1, dtype=torch.int32, device=device)}
     return {
         "k": torch.zeros((batch, length, kv, dh), dtype=dtype, device=device),
         "v": torch.zeros((batch, length, kv, dh), dtype=dtype, device=device),

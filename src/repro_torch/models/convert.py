@@ -9,6 +9,17 @@ a leading ``n_units`` axis, layer ``u * len(pattern_unit) + pos`` at index
 port holds one module a layer in layer order.  Both sides are float32
 masters, so the carry-over is exact in both directions.
 
+A w8a16 tree (the reference's ``quantize_tree`` with its axes) carries
+over both ways too: a linear's ``w_q`` / ``w_s`` leaves become the port
+``Linear``'s buffers, stacked as ``(n_units, in, *out)`` and
+``(n_units, *out)``.
+
+For training, ``reference_leaves`` lays the model's float32 masters out
+as the reference's leaves in place: each unit leaf becomes one stacked
+tensor and the layers' parameters views of it, so an optimizer reads and
+updates the reference's stacked leaves (Adafactor's update clipping and
+the 8-bit moments' blocks span every unit of a leaf) with no copy.
+
 The tree is given as numpy arrays (``jax.tree.map(np.asarray, params)``
 on the reference's side); this module imports nothing of JAX.
 """
@@ -18,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import Linear
 from repro_torch.models.transformer import Transformer
 
 
@@ -37,12 +49,13 @@ def _map(fn, node):
 
 
 def _layer_items(layer: torch.nn.Module):
-    """(path in the reference's layer tree, the port's parameter) pairs:
-    the port's module and parameter names are the reference's keys
-    (``norm1`` / ``attn`` / ``wq`` / ``w``, ``moe`` / ``router`` / ``w_gate``,
-    ``rglru`` / ``lam``, ``mlstm`` / ``norm`` / ``scale``, ``slstm`` /
-    ``r_i``, ...); ``norm2`` exists only in the kinds that have it."""
-    return [(tuple(name.split(".")), p) for name, p in layer.named_parameters()]
+    """(path in the reference's layer tree, the port's tensor) pairs: the
+    parameters and the w8a16 buffers.  The port's module and parameter
+    names are the reference's keys (``norm1`` / ``attn`` / ``wq`` / ``w``
+    or ``w_q`` and ``w_s``, ``moe`` / ``router`` / ``w_gate``, ``rglru`` /
+    ``lam``, ``mlstm`` / ``norm`` / ``scale``, ``slstm`` / ``r_i``, ...);
+    ``norm2`` exists only in the kinds that have it."""
+    return [(tuple(name.split(".")), t) for name, t in layer.state_dict(keep_vars=True).items()]
 
 
 def _get(tree: dict, path: tuple):
@@ -57,16 +70,26 @@ def _set(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
-def _copy(dst: torch.nn.Parameter, src, what: str) -> None:
+def _copy(dst: torch.Tensor, src, what: str) -> None:
     src = np.asarray(src)
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"{what}: reference shape {src.shape}, port shape {tuple(dst.shape)}")
-    dst.data.copy_(torch.from_numpy(np.ascontiguousarray(src, dtype=np.float32)))
+    dst.data.copy_(torch.tensor(src).to(dst.dtype))
+
+
+def _quantize_like(layer: torch.nn.Module, tree: dict) -> None:
+    """Give each ``Linear`` whose reference sub-tree is w8a16 (``w_q``,
+    ``w_s``) the buffers of those shapes, to be filled by ``_copy``."""
+    for name, m in layer.named_modules():
+        sub = _get(tree, tuple(name.split("."))) if name else tree
+        if isinstance(m, Linear) and "w_q" in sub:
+            m.set_w8a16(torch.empty(np.shape(sub["w_q"]), dtype=torch.int8, device=m.w.device),
+                        torch.empty(np.shape(sub["w_s"]), dtype=torch.float32, device=m.w.device))
 
 
 def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> Transformer:
-    """The reference's parameter tree (numpy arrays) as the port's
-    ``Transformer`` on ``device`` (``None``: the card)."""
+    """The reference's parameter tree (numpy arrays), float32 or w8a16, as
+    the port's ``Transformer`` on ``device`` (``None``: the card)."""
     model = Transformer(cfg, generator=None, device=device)
     _copy(model.embed, tree["embed"], "embed")
     _copy(model.final_norm.scale, tree["final_norm"]["scale"], "final_norm")
@@ -74,6 +97,7 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None) -> Transfor
         _copy(model.unembed, tree["unembed"], "unembed")
     for i, layer in enumerate(model.layers):
         lt = _layer_tree(tree, cfg, i)
+        _quantize_like(layer, lt)
         for path, p in _layer_items(layer):
             _copy(p, _get(lt, path), f"layer {i} {'/'.join(path)}")
     return model
@@ -85,8 +109,8 @@ def params_to_reference(model: Transformer) -> dict:
     cfg = model.cfg
     n_unit = len(cfg.pattern_unit)
 
-    def host(p):
-        return p.detach().cpu().numpy()
+    def host(p):  # a copy: never an alias of a CPU model's storage, which training updates
+        return p.detach().to("cpu", copy=True).numpy()
 
     tree = {"embed": host(model.embed), "final_norm": {"scale": host(model.final_norm.scale)},
             "units": {}, "leftover": []}
@@ -104,3 +128,47 @@ def params_to_reference(model: Transformer) -> dict:
             _set(leaf, path, host(p))
         tree["leftover"].append(leaf)
     return tree
+
+
+def leaf_params(model: Transformer) -> dict[str, list[torch.nn.Parameter]]:
+    """Each reference leaf's path (``"embed"``, ``"final_norm/scale"``,
+    ``"units/<pos>/attn/wq/w"``, ``"leftover/<i>/norm1/scale"``, ...) and
+    the port's parameters it holds — a unit leaf's layers in unit order —
+    in the reference's flattening order (JAX's sorted dict keys, list
+    entries by index)."""
+    cfg = model.cfg
+    n_unit = len(cfg.pattern_unit)
+    out = [(("embed",), [model.embed]), (("final_norm", "scale"), [model.final_norm.scale])]
+    if model.unembed is not None:
+        out.append((("unembed",), [model.unembed]))
+    for pos in range(n_unit if cfg.n_units else 0):
+        layers = [dict(model.layers[u * n_unit + pos].named_parameters())
+                  for u in range(cfg.n_units)]
+        out += [(("units", str(pos), *name.split(".")), [ps[name] for ps in layers])
+                for name in layers[0]]
+    for i, layer in enumerate(model.layers[cfg.n_units * n_unit:]):
+        out += [(("leftover", i, *name.split(".")), [p]) for name, p in layer.named_parameters()]
+    out.sort(key=lambda kv: kv[0])
+    return {"/".join(map(str, path)): ps for path, ps in out}
+
+
+def reference_leaves(model: Transformer) -> dict[str, torch.Tensor]:
+    """The model's float32 masters as the reference's leaves (``leaf_params``'
+    paths and order), a unit leaf stacked (n_units, ...).  The first call
+    moves each unit leaf's layers into one stacked tensor, one leaf at a
+    time, and makes the layers' parameters views of it; every call returns
+    those same tensors, so an update written to a leaf is the model's."""
+    leaves = model.__dict__.get("_reference_leaves")
+    if leaves is None:
+        leaves = {}
+        with torch.no_grad():
+            for path, ps in leaf_params(model).items():
+                if path.startswith("units/"):
+                    stacked = torch.stack([p.detach() for p in ps])
+                    for u, p in enumerate(ps):
+                        p.data = stacked[u]
+                    leaves[path] = stacked
+                else:
+                    leaves[path] = ps[0].detach()
+        model.__dict__["_reference_leaves"] = leaves
+    return leaves

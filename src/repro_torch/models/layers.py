@@ -25,6 +25,17 @@ arithmetic follows the reference op for op:
 Weights are ``nn.Parameter``s in float32, the reference's masters; a
 linear's weight is held as ``(in, *out)``, the reference's layout, so a
 reference parameter tree carries over without a transpose.
+
+w8a16 serving (the reference's ``quantize_tree`` and ``linear``'s
+``w_q`` / ``w_s`` branch): ``quantize_model`` turns every ``Linear``'s
+master into int8 codes ``w_q`` (in, *out) and float32 per-output-channel
+scales ``w_s`` (*out), symmetric over the input dimension, both buffers
+(no gradient); the product then dequantises first, ``w_q.to(dt) *
+w_s.to(dt)``, as the reference does.  Embeddings and the raw tensors of
+the MoE experts, the RG-LRU and the xLSTM stay float32, as in the
+reference.  The port's layers are not stacked, so each layer's scale is
+taken over its own input dimension: the reference's, given the logical
+axes, is taken over axis 1 of a stacked leaf, the same numbers.
 """
 from __future__ import annotations
 
@@ -43,9 +54,25 @@ def normal_init(shape, scale: float, generator: torch.Generator | None, device) 
     return w
 
 
+def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 codes and float32 scales of a weight (in, *out), symmetric over
+    the input dimension: ``scale = max |w| / 127`` a column, codes
+    ``round(w / max(scale, 1e-12))`` (half to even, as ``jnp.round``)
+    clipped to +-127."""
+    wf = w.detach().float()
+    amax = wf.abs().amax(dim=0)
+    # a divisor tensor: CUDA multiplies by the reciprocal of a Python number,
+    # an ulp off at times (a scale, then a code, unlike the CPU's and XLA's)
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(wf / torch.clamp_min(scale[None], 1e-12)), -127, 127)
+    return q.to(torch.int8), scale
+
+
 class Linear(nn.Module):
     """Weight ``w`` (in_dim, *out_shape) with fan-in init N(0, 1/in_dim)
-    (the reference's ``init_linear``), optional zero bias ``b`` (*out_shape)."""
+    (the reference's ``init_linear``), optional zero bias ``b`` (*out_shape).
+    Quantised (``set_w8a16``), ``w`` is None and the buffers ``w_q`` /
+    ``w_s`` hold the weight."""
 
     def __init__(self, in_dim: int, out_shape, *, bias: bool = False,
                  generator: torch.Generator | None = None, device=None):
@@ -57,7 +84,27 @@ class Linear(nn.Module):
                                requires_grad=False) if bias else None)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        if self.w is None:  # w8a16: dequantise, then the product
+            dt = dtype or x.dtype
+            return linear(x, self.w_q.to(dt) * self.w_s.to(dt), self.b, dtype)
         return linear(x, self.w, self.b, dtype)
+
+    def set_w8a16(self, w_q: torch.Tensor, w_s: torch.Tensor) -> None:
+        """Hold the weight as int8 codes ``w_q`` (in, *out) and float32
+        scales ``w_s`` (*out); the float32 master is dropped."""
+        self.w = None
+        self.register_buffer("w_q", w_q)
+        self.register_buffer("w_s", w_s)
+
+
+def quantize_model(model: nn.Module) -> nn.Module:
+    """w8a16 in place: every ``Linear`` of ``model`` quantised one at a
+    time (``quantize_weight``), each master freed as it goes, so the
+    float32 tree is never held twice.  Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, Linear) and m.w is not None:
+            m.set_w8a16(*quantize_weight(m.w))
+    return model
 
 
 class RMSNorm(nn.Module):
@@ -85,7 +132,7 @@ class FFN(nn.Module):
         self.down = Linear(d_ff, d_model, generator=generator, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ffn(x, self.gate.w, self.up.w, self.down.w, self.act)
+        return self.down(act(self.act)(self.gate(x)) * self.up(x))
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Model assembly for inference: embed, the layer stack, prefill and decode.
+"""Model assembly: embed, the layer stack, prefill, decode and the loss.
 
 Port of ``repro.models.transformer``'s inference half for every layer
 kind: ``"attn"`` (attention + gated FFN, global or sliding-window),
@@ -8,9 +8,17 @@ carry their own projections and have no second norm), one layer class a
 kind as ``apply_layer_train`` / ``apply_layer_decode`` lay them out.  The
 reference groups layers into stacked pattern units under ``lax.scan``
 with rematerialisation; here the layers are an ``nn.ModuleList`` in
-layer order and every forward runs eagerly under
-``torch.inference_mode`` — no scan, no remat, no sharding layout (one
-device).  Training and the loss are later items of the port's roadmap.
+layer order, run eagerly — no scan, no sharding layout (one device).
+Prefill and decode run under ``torch.inference_mode``; ``forward_train``
+runs with autograd, each pattern unit (not the leftover layers) under
+``torch.utils.checkpoint`` as the reference rematerialises its scan body
+(``REPRO_REMAT=dots``: a selective policy that saves the products
+without batch dimensions, the reference's
+``dots_with_no_batch_dims_saveable``), and returns the summed MoE aux
+terms (``moe_aux + moe_zloss`` a layer).  ``chunked_xent`` streams the
+cross-entropy over vocabulary chunks of 32,768 (the last one padded with
+-1e30 logits), so full float32 logits never exist; ``lm_loss`` adds the
+aux terms and gives a vision prefix targets of -1.
 
 Dtypes follow the reference: the weights are float32 masters, cast at
 every use to the activation dtype (``cfg.dtype``); the embedding is
@@ -29,10 +37,15 @@ output on, exactly as the reference does.
 """
 from __future__ import annotations
 
+import functools
 import math
+import os
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -61,20 +74,24 @@ class AttnLayer(nn.Module):
         self.ffn = (FFN(cfg.d_model, cfg.d_ff, cfg.act, **kw) if kind == "attn" and cfg.d_ff
                     else None)
 
-    def _mlp(self, x: torch.Tensor, group_by_batch: bool) -> torch.Tensor:
+    def _mlp(self, x: torch.Tensor, group_by_batch: bool):
+        """(x + the FFN or MoE of norm2(x), the MoE's aux terms summed or None)."""
         if self.moe is not None:
-            return x + self.moe(self.norm2(x), group_by_batch=group_by_batch)[0]
+            out, aux = self.moe(self.norm2(x), group_by_batch=group_by_batch)
+            return x + out, aux["moe_aux"] + aux["moe_zloss"]
         if self.ffn is None:  # the reference adds zeros
-            return x
-        return x + self.ffn(self.norm2(x))
+            return x, None
+        return x + self.ffn(self.norm2(x)), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        """Returns (x, this layer's (k, v), the MoE aux terms or None)."""
         h, kv = self.attn(self.norm1(x), positions, window=self.window)
-        return self._mlp(x + h, False), kv
+        x, aux = self._mlp(x + h, False)
+        return x, kv, aux
 
     def decode(self, x: torch.Tensor, cache: dict, pos: int):
         h, cache = self.attn.decode(self.norm1(x), cache, pos, window=self.window)
-        return self._mlp(x + h, True), cache
+        return self._mlp(x + h, True)[0], cache
 
     def make_cache(self, batch: int, max_len: int, dtype, device) -> dict:
         """A windowed layer's ring holds min(window, max_len) slots, a
@@ -98,7 +115,7 @@ class RGLRULayer(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         x = x + self.rglru(self.norm1(x))
-        return x + self.ffn(self.norm2(x)), None
+        return x + self.ffn(self.norm2(x)), None, None
 
     def decode(self, x: torch.Tensor, state: dict, pos: int):
         h, state = self.rglru.decode(self.norm1(x), state)
@@ -126,7 +143,7 @@ class XLSTMLayer(nn.Module):
         return getattr(self, self.kind)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        return x + self.block(self.norm1(x)), None
+        return x + self.block(self.norm1(x)), None, None
 
     def decode(self, x: torch.Tensor, state: dict, pos: int):
         h, state = self.block.decode(self.norm1(x), state)
@@ -152,9 +169,21 @@ def make_layer(cfg: ModelConfig, kind: str, window: int | None, *,
 
 
 def rounded_params(layer: nn.Module, dtype: torch.dtype) -> dict:
-    """The layer's float32 masters rounded to ``dtype``, by name (the
-    reference's early cast of the layer stack)."""
-    return {name: p.to(dtype) for name, p in layer.named_parameters()}
+    """The layer's float32 masters (and w8a16 scales) rounded to ``dtype``,
+    by name, the int8 codes as they are (the reference's early cast of the
+    layer stack: every float32 leaf).  Differentiable: the gradient flows
+    back to the masters."""
+    return {name: t.to(dtype) if t.dtype == torch.float32 else t
+            for name, t in layer.state_dict(keep_vars=True).items()}
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """``REPRO_REMAT=dots``: keep the products without batch dimensions
+    (``aten.mm``: the linears), recompute everything else — the
+    reference's ``dots_with_no_batch_dims_saveable``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class Transformer(nn.Module):
@@ -212,6 +241,62 @@ class Transformer(nn.Module):
         w = self.unembed_matrix().to(self.dtype)
         return torch.matmul(x.float(), w.float())
 
+    def _run_layer(self, layer: nn.Module, x: torch.Tensor, positions: torch.Tensor):
+        """One layer: in bf16 on its masters rounded to bf16 (the reference's
+        ``REPRO_CAST_EARLY``), else on the masters.  Returns (x, kv, aux)."""
+        if self.dtype == torch.float32:
+            return layer(x, positions)
+        return torch.func.functional_call(layer, rounded_params(layer, self.dtype), (x, positions))
+
+    def _run_unit(self, layers, x: torch.Tensor, positions: torch.Tensor, kvs: list | None):
+        """Layers in order: (x, their aux terms summed in float32 from 0, as
+        the reference's scan body sums them); each attention layer's
+        (k, v) appended to ``kvs`` when given."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in layers:
+            x, kv, a = self._run_layer(layer, x, positions)
+            if a is not None:
+                aux = aux + a
+            if kvs is not None and kv is not None:
+                kvs.append(kv)
+        return x, aux
+
+    def _run_stack(self, x: torch.Tensor, positions: torch.Tensor, *, kvs: list | None = None,
+                   remat: bool = False):
+        """The pattern units, each under ``torch.utils.checkpoint`` when
+        ``remat`` (the rounding to bf16 inside it, so no bf16 copy of the
+        stack is held for the backward), then the leftover layers.  Returns
+        (x, the aux terms: the units' sum, then each leftover's added)."""
+        n_unit = len(self.cfg.pattern_unit)
+        n_stacked = self.cfg.n_units * n_unit
+        units = [self.layers[u * n_unit:(u + 1) * n_unit] for u in range(self.cfg.n_units)]
+        run = functools.partial(self._run_unit, positions=positions, kvs=kvs)
+        if remat:
+            kw = {"use_reentrant": False}
+            if os.environ.get("REPRO_REMAT", "full") == "dots":
+                kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                     _dots_saveable)
+            run = functools.partial(checkpoint, self._run_unit, positions=positions, kvs=None, **kw)
+        auxs = []
+        for layers in units:
+            x, a = run(layers, x)
+            auxs.append(a)
+        aux = (torch.stack(auxs).sum() if auxs
+               else torch.zeros((), dtype=torch.float32, device=x.device))
+        for layer in self.layers[n_stacked:]:
+            x, a = self._run_unit([layer], x, positions, kvs)
+            aux = aux + a
+        return x, aux
+
+    def _positions(self, x: torch.Tensor) -> torch.Tensor:
+        b, t = x.shape[:2]
+        return torch.arange(t, dtype=torch.int64, device=x.device)[None].expand(b, t)
+
+    def _prefixed(self, x: torch.Tensor, prefix_embeds: torch.Tensor | None) -> torch.Tensor:
+        if self.cfg.frontend == "vision_stub" and prefix_embeds is not None:
+            return torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        return x
+
     @torch.inference_mode()
     def forward_hidden(self, tokens: torch.Tensor, prefix_embeds: torch.Tensor | None = None,
                        *, collect_kv: bool = False):
@@ -221,22 +306,25 @@ class Transformer(nn.Module):
         (B, P, D) is prepended for the vision-stub frontend.  In bf16 each
         layer runs on its masters rounded to bf16, as the reference's
         default ``REPRO_CAST_EARLY`` runs it."""
-        x = self.embed_tokens(tokens)
-        if self.cfg.frontend == "vision_stub" and prefix_embeds is not None:
-            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-        b, t = x.shape[:2]
-        positions = torch.arange(t, dtype=torch.int64, device=x.device)[None].expand(b, t)
-        rounded = self.dtype != torch.float32
-        kvs = []
-        for layer in self.layers:
-            if rounded:
-                x, kv = torch.func.functional_call(layer, rounded_params(layer, self.dtype),
-                                                   (x, positions))
-            else:
-                x, kv = layer(x, positions)
-            if collect_kv and kv is not None:
-                kvs.append(kv)
-        return rms_norm(x, self.final_norm.scale, self.cfg.norm_eps), (kvs if collect_kv else None)
+        x = self._prefixed(self.embed_tokens(tokens), prefix_embeds)
+        kvs = [] if collect_kv else None
+        x, _ = self._run_stack(x, self._positions(x), kvs=kvs)
+        return rms_norm(x, self.final_norm.scale, self.cfg.norm_eps), kvs
+
+    def forward_train(self, tokens: torch.Tensor, prefix_embeds: torch.Tensor | None = None,
+                      *, remat: bool = True):
+        """The reference's ``forward_train`` with autograd: returns
+        (final-normed hidden (B, T, D), the MoE aux terms summed, float32).
+        Each pattern unit is rematerialised when ``remat`` (the backward
+        recomputes it; ``REPRO_REMAT=dots`` keeps its linears' products),
+        which changes memory, not numbers.  The embedding table is cast to
+        the model dtype before the gather, the reference's order, so its
+        gradient is summed in that dtype as the reference's is."""
+        dt = self.dtype
+        x = self.embed.to(dt)[tokens] * scalar(math.sqrt(self.cfg.d_model), dt)
+        x = self._prefixed(x, prefix_embeds)
+        x, aux = self._run_stack(x, self._positions(x), remat=remat)
+        return rms_norm(x, self.final_norm.scale, self.cfg.norm_eps), aux
 
     @torch.inference_mode()
     def forward_prefill(self, tokens: torch.Tensor, prefix_embeds: torch.Tensor | None = None):
@@ -263,3 +351,51 @@ class Transformer(nn.Module):
         for layer, cache in zip(self.layers, caches):
             x, _ = layer.decode(x, cache, pos)
         return self.logits(rms_norm(x, self.final_norm.scale, self.cfg.norm_eps)), caches
+
+
+def chunked_xent(hidden: torch.Tensor, w_unembed: torch.Tensor, targets: torch.Tensor, *,
+                 chunk_v: int = 32_768, ignore_id: int = -1):
+    """Streaming cross-entropy over vocabulary chunks (no full float32
+    logits), the reference's: hidden (B, T, D), w_unembed (D, V), targets
+    (B, T) -> (loss_sum, n_valid).  Each chunk's logits are the product of
+    hidden and the chunk's columns cast to hidden's dtype, in float32 (exact
+    products, float32 sums); the last chunk is padded to ``chunk_v`` with
+    -1e30 logits; a running max, sum of exponentials and the target's logit
+    are carried across chunks."""
+    b, t, _ = hidden.shape
+    v = w_unembed.shape[1]
+    chunk_v = min(chunk_v, v)
+    hf = hidden.float()
+    m = torch.full((b, t), -1e30, dtype=torch.float32, device=hidden.device)
+    s = torch.zeros((b, t), dtype=torch.float32, device=hidden.device)
+    tgt = torch.zeros((b, t), dtype=torch.float32, device=hidden.device)
+    for base in range(0, v, chunk_v):
+        wc = w_unembed[:, base:base + chunk_v].to(hidden.dtype).float()
+        logits = torch.matmul(hf, wc)  # (B, T, <= chunk_v) float32
+        if logits.shape[-1] < chunk_v:
+            logits = F.pad(logits, (0, chunk_v - logits.shape[-1]), value=-1e30)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[..., None]).sum(dim=-1)
+        local = targets.long() - base
+        hit = (local >= 0) & (local < chunk_v)
+        got = torch.gather(logits, -1, local.clamp(0, chunk_v - 1)[..., None])[..., 0]
+        tgt = torch.where(hit, got, tgt)
+        m = m_new
+    nll = m + torch.log(torch.clamp_min(s, 1e-30)) - tgt
+    valid = targets != ignore_id
+    return torch.where(valid, nll, 0.0).sum(), valid.sum()
+
+
+def lm_loss(model: Transformer, batch: dict, *, remat: bool = True) -> torch.Tensor:
+    """Mean next-token NLL plus the MoE aux terms (the reference's
+    ``lm_loss``): ``batch`` holds tensors ``tokens`` and ``targets``
+    (B, T) and, for the vision stub, ``prefix_embeds`` (B, P, D), whose
+    positions get target -1 (no loss)."""
+    prefix = batch.get("prefix_embeds")
+    hidden, aux = model.forward_train(batch["tokens"], prefix, remat=remat)
+    targets = batch["targets"]
+    if model.cfg.frontend == "vision_stub" and prefix is not None:
+        pad = torch.full(prefix.shape[:2], -1, dtype=targets.dtype, device=targets.device)
+        targets = torch.cat([pad, targets], dim=1)
+    loss_sum, n_valid = chunked_xent(hidden, model.unembed_matrix(), targets)
+    return loss_sum / torch.clamp_min(n_valid, 1) + aux

@@ -254,4 +254,7 @@ class RAGServer:
             else:
                 tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
                 out.append(tok[:, 0])
+        if not out:  # the reference's np.stack of no steps raises ValueError
+            raise ValueError(f"generate: max_new_tokens={max_new_tokens} leaves no token to "
+                             "decode (need at least one array to stack)")
         return torch.stack(out, dim=1).cpu().numpy(), stats

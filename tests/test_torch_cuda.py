@@ -20,8 +20,9 @@ a telemetry-off batch launching what the bare loop launches; and a 2-rank
 gloo mesh on the card running the distributed step (sharded fetch through
 gloo on CUDA tensors, the ADC and re-rank kernels once a hop) equal to the
 same mesh on the CPU and to the single-host search; the LM's smoke
-configs, every layer kind (prefill, greedy decode), and
-``RAGServer.generate`` on the card equal to the CPU in float32.  Within
+configs, every layer kind (prefill, greedy decode), their w8a16 and int8
+KV decode, one train step of each kind, and ``RAGServer.generate`` on
+the card equal to the CPU in float32.  Within
 ``expanded_tolerance``: the expanded L2 form.  The input
 generators are shared with ``tests/test_torch_kernels.py`` and
 ``tests/test_torch_rerank.py``.
@@ -773,16 +774,21 @@ def test_card_build_vamana_equals_cpu(cuda):
 
 
 # ------------------------------------------------------ serving and telemetry
-def device_launches(fn) -> int:
-    """Device kernel launches of one call of ``fn``, from torch.profiler."""
+def device_launches(fn) -> tuple[int, dict]:
+    """One call of ``fn`` under torch.profiler: its device kernel launches
+    (the device events of measured time) and every device event's count by
+    name (its first 80 characters), those of no measured time included."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names: dict = {}
+    for e in events:
+        names[e.key[:80]] = names.get(e.key[:80], 0) + e.count
+    return sum(e.count for e in events if e.self_device_time_total > 0), names
 
 
 def bare_search(eng, q, kind, params, cfg):
@@ -867,8 +873,8 @@ def test_card_telemetry_off_launches_what_it_did(cuda):
     for name, reg in (("off", off_reg), ("on", on_reg)):
         with obs.use_registry(reg):
             _build.reset_launches()
-            counts[name] = (device_launches(lambda: eng.search(q, **kw)), dict(_build.LAUNCHES))
-    bare = device_launches(lambda: bare_search(eng, q, "label", targets, cfg))
+            counts[name] = (device_launches(lambda: eng.search(q, **kw))[0], dict(_build.LAUNCHES))
+    bare = device_launches(lambda: bare_search(eng, q, "label", targets, cfg))[0]
     assert counts["off"][0] == bare
     assert counts["on"][1] == counts["off"][1] and counts["off"][1]["pq_lookup"] > 0
     assert counts["on"][0] > counts["off"][0]  # the stats stack, on the card
@@ -1042,3 +1048,85 @@ def test_card_generate_equals_cpu(cuda, tmp_path):
     for f in out["cpu"][1]._fields:
         np.testing.assert_array_equal(getattr(out["card"][1], f).numpy(),
                                       getattr(out["cpu"][1], f).numpy())
+
+
+def train_step_card_vs_cpu(cuda, cfg, b: int, t: int, seed: int) -> dict:
+    """One train step (Adafactor) of float32 ``cfg`` on the card and on the
+    CPU from the same weights (drawn on the card) and batch: loss and grad
+    norm within rtol = atol = 1e-4; every updated element within 1e-4 of
+    its leaf's largest magnitude plus lr / 100, but for at most 1 in
+    10,000, each within 2.2 lr: Adafactor normalises a leaf's step by its
+    factored second moment and clips it to RMS 1, so a leaf whose
+    gradient is float32 noise (the xlstm smoke's sLSTM input-gate bias,
+    5e-9) takes a step of about lr in a direction the noise sets."""
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainHParams, make_train_state, make_train_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    hp = TrainHParams(peak_lr=1e-3, warmup=1, total_steps=10, opt=OptConfig(name="adafactor"))
+    on_card = make_train_state(cfg, hp, torch.Generator(cuda).manual_seed(seed), device=cuda)
+    on_cpu = make_train_state(cfg, hp, torch.Generator().manual_seed(seed), device="cpu")
+    with torch.no_grad():
+        for leaf, src in zip(reference_leaves(on_cpu.params).values(),
+                             reference_leaves(on_card.params).values()):
+            leaf.copy_(src)
+    batch = batch_at_step(TokenStreamConfig(cfg.vocab_size, t, b, seed=seed), 1)
+    step = make_train_step(cfg, hp)
+    res = {}
+    for name, st in (("card", on_card), ("cpu", on_cpu)):
+        new, m = step(st._replace(step=torch.ones_like(st.step)), batch)  # past warmup's lr 0
+        res[name] = ({k: float(v) for k, v in m.items()},
+                     {k: v.detach().cpu() for k, v in reference_leaves(new.params).items()})
+    (gm, gp), (cm, cp) = res["card"], res["cpu"]
+    for k in ("loss", "grad_norm", "lr"):
+        assert abs(gm[k] - cm[k]) <= 1e-4 + 1e-4 * abs(cm[k]), (cfg.name, k, gm[k], cm[k])
+    lr, apart, n = cm["lr"], 0, 0
+    for k, v in cp.items():
+        d = (gp[k] - v).abs()
+        scale = float(v.abs().max())
+        assert float(d.max()) <= 1e-4 * scale + 2.2 * lr, (cfg.name, k, float(d.max()))
+        apart += int((d > 1e-4 * scale + 1e-2 * lr).sum())
+        n += d.numel()
+    assert apart <= n // 10_000, (cfg.name, apart, n)
+    return {"loss": [gm["loss"], cm["loss"]], "grad_norm": [gm["grad_norm"], cm["grad_norm"]],
+            "params_apart": apart, "params": n}
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-9b", "xlstm-350m", "dbrx-132b"])
+def test_card_train_step_equals_cpu(cuda, arch):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    train_step_card_vs_cpu(cuda, dataclasses.replace(get_smoke_config(arch), dtype="float32"),
+                           2, 32, seed=1)
+
+
+@pytest.mark.parametrize("variant", ["w8a16", "int8_kv", "w8a16+int8_kv"])
+def test_card_variant_decode_equals_cpu(cuda, variant, monkeypatch):
+    """The gemma3-4b smoke config in float32 with w8a16 weights (quantised
+    on each device: the same codes) and / or the int8 KV cache: 16 greedy
+    decode steps, tokens equal and logits within 1e-5 of the largest."""
+    from repro_torch.models.layers import Linear, quantize_model
+    from repro_torch.serve import make_serve_step
+
+    monkeypatch.setenv("REPRO_KV_INT8", "1" if "int8_kv" in variant else "0")
+    cfg, cpu, card = lm_pair("gemma3-4b", cuda)
+    if "w8a16" in variant:
+        quantize_model(cpu)
+        quantize_model(card)
+        for a, b in zip(cpu.modules(), card.modules()):
+            if isinstance(a, Linear):
+                assert torch.equal(a.w_q, b.w_q.cpu()) and torch.equal(a.w_s, b.w_s.cpu())
+    step = make_serve_step(cfg)
+    c_cpu, c_card = cpu.init_caches(2, 16, torch.float32), card.init_caches(2, 16, torch.float32)
+    tok = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+    t_cpu, t_card = tok, tok
+    for pos in range(16):
+        w, g = step(cpu, c_cpu, t_cpu, pos), step(card, c_card, t_card, pos)
+        torch.testing.assert_close(g["logits"].cpu(), w["logits"], rtol=1e-5,
+                                   atol=1e-5 * max(1.0, float(w["logits"].abs().max())))
+        assert torch.equal(g["next_tokens"].cpu(), w["next_tokens"]), (variant, pos)
+        t_cpu, t_card = w["next_tokens"], g["next_tokens"]

@@ -39,7 +39,8 @@ GUARD = textwrap.dedent("""
 
 # modules the port must hold: the disk tier, the kernels, the build, the cache
 # tiers, telemetry, retrieval serving, distributed search, and the LM side
-# (configs, models, the token stream, the prefill and decode steps)
+# (configs, models, the token stream, the prefill and decode steps, the
+# optimizers, the train step, the checkpointer and the training launcher)
 EXPECTED = {
     "repro_torch.core.engine", "repro_torch.core.search", "repro_torch.core.pq",
     "repro_torch.core.io_model", "repro_torch.core.graph",
@@ -61,6 +62,9 @@ EXPECTED = {
     "repro_torch.models.transformer", "repro_torch.models.zoo", "repro_torch.models.convert",
     "repro_torch.models.moe", "repro_torch.models.rglru", "repro_torch.models.xlstm",
     "repro_torch.data.tokens", "repro_torch.serve.decode", "repro_torch.serve.prefill",
+    "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+    "repro_torch.train", "repro_torch.train.train_step",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
 }
 
 

@@ -767,7 +767,7 @@ def test_early_cast_changes_bf16_prefill(bf16_ref, trees):
         x = model.embed_tokens(toks)
         positions = torch.arange(t)[None].expand(b, t)
         for layer in model.layers:
-            x, _ = layer(x, positions)
+            x, _, _ = layer(x, positions)
         x = layers.rms_norm(x, model.final_norm.scale, cfg.norm_eps)
         uncast = model.logits(x[:, -1:])
     rel = {k: float(np.linalg.norm(host(v) - want) / np.linalg.norm(want))
