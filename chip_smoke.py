@@ -9,8 +9,9 @@ CUDA kernels, serves retrieval-augmented generation with gemma3-4b at
 full width over that index, runs the MoE, RG-LRU and xLSTM layer kinds
 (recurrentgemma-9b, xlstm-350m, dbrx-132b) at full width, decodes with
 w8a16 weights and the int8 KV cache, trains (the reference's training
-example on its config, and gemma3-4b at full width), and holds
-every kernel against its plain PyTorch version on the card.  Phases,
+example on its config, and gemma3-4b at full width; that config
+ZeRO-sharded over gloo ranks sharing the card), and holds every kernel
+against its plain PyTorch version on the card.  Phases,
 each printing its own lines:
 
   1. device: the card's name and power limit (``nvidia-smi``), torch and
@@ -122,16 +123,34 @@ each printing its own lines:
      config (12 x 512, vocab 32,768, float32, 80,753,152 params) through
      ``launch.train.run`` for 300 steps, B = 8, T = 256, AdamW (weight
      decay 0.01, warmup 20), checkpointing into the run's temporary
-     directory; the loss falls; a run cut at step 200 and resumed there
-     ends equal to the unbroken run bit for bit (losses and the step-300
-     checkpoint) under ``torch.use_deterministic_algorithms``, set for this
-     part only; the save seconds and the file system; (b) gemma3-4b at
+     directory; the loss falls; a run resumed from a copy of that run's
+     own step-201 checkpoint ends equal to the unbroken run bit for bit
+     (losses and the step-300 checkpoint) under
+     ``torch.use_deterministic_algorithms``, set for this part only; the
+     save seconds and the file system; (b) gemma3-4b at
      full width and depth, bf16 over float32 masters, Adafactor, B = 1,
      T = 4,096 (TRAIN_4K's sequence, its global batch cut to 1), remat a
      unit, 5 steps: seconds a step beside the operations bound, tokens/s,
      peak memory, each step's loss, grad norm and lr, one step profiled;
      (c) one train step card against CPU: gemma3-4b at full width cut to
      2 layers (B = 1, T = 128) and the smoke configs of four layer kinds;
+  dist_train. ZeRO-sharded training (``repro_torch.distributed``,
+     ``make_train_step`` with a ``train`` layout on a live mesh) on the one
+     card: (a) ``quantize_int8`` of 80,753,152 seeded values card == CPU
+     bit for bit, ``compressed_psum`` over the ``data`` group of a (2, 2)
+     gloo mesh and a 1-rank nccl world == one process's plain sum, the
+     bytes a reduction moves as int8 codes plus scales against float32;
+     (b) the train phase's (a) config at full width (B = 8, T = 256,
+     AdamW) for 20 steps on a (2, 2) gloo mesh (4 spawned ranks) and 3 on
+     a 1-rank nccl world, each step's loss within rtol 2e-4 of one
+     device's from the same init and batches, the step-20 params within
+     the summed lrs' bound; per rank the state bytes held, peak memory,
+     ms a step, the collectives' share of an instrumented step and a
+     ``StepWatchdog``'s readings; (c) the step-20 checkpoint restored on
+     one device (== every rank's blocks bit for bit) and on a (1, 4) mesh
+     (``shardings=``), 2 steps there within rtol 2e-4 of one device's;
+     (d) per-rank bytes of the train state of gemma3-4b and
+     llama4-maverick on the production meshes, from shapes alone;
   6. the brute-force PQ scan: every code scored by ``pq.adc_lookup``,
      filtered, top-10 by two levels of ``kernels.ops.topk_merge``;
   7. card vs CPU on a 20,000-vector index in all five modes;
@@ -154,8 +173,11 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -181,8 +203,14 @@ from repro_torch.kernels import l2_dist as l2k  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import pq_lookup as pqk  # noqa: E402
 from repro_torch.kernels import topk_merge as tkk  # noqa: E402
-from repro_torch.launch import spawn_local  # noqa: E402
+from repro_torch.launch import AbstractMesh, abstract_production_mesh, spawn_local  # noqa: E402
 from repro_torch.checkpoint import CheckpointConfig, Checkpointer  # noqa: E402
+from repro_torch.checkpoint.checkpointer import flatten_with_paths  # noqa: E402
+from repro_torch.distributed.compression import (  # noqa: E402
+    compressed_psum, dequantize_int8, quantize_int8)
+from repro_torch.distributed.fault_tolerance import StepWatchdog  # noqa: E402
+from repro_torch.distributed.sharding import NamedSharding, make_layout, named_shardings  # noqa: E402
+from repro_torch.models.convert import reference_axes, reference_leaves  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.base import TRAIN_4K, ModelConfig  # noqa: E402
 from repro_torch.data.tokens import TokenStreamConfig, batch_at_step  # noqa: E402
@@ -192,7 +220,8 @@ from repro_torch.models.layers import Linear, quantize_model  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.optim import OptConfig  # noqa: E402
 from repro_torch.train import TrainHParams, make_train_state, make_train_step  # noqa: E402
-from repro_torch.train.train_step import load_state_tree, state_tree  # noqa: E402
+from repro_torch.train.train_step import (  # noqa: E402
+    load_state_tree, make_train_state_specs, state_tree)
 from repro_torch.serve import RAGRequest, RAGServer, ServeFrontend, TenantSpec  # noqa: E402
 from repro_torch.serve import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.store.adaptive import AdaptiveRecordCache  # noqa: E402
@@ -257,20 +286,29 @@ LM_VARIANTS = {"bf16": (False, False), "w8a16": (True, False), "int8_kv": (False
 LM_VARIANTS_CHECK, LM_VARIANTS_BOUND = (6, 2, 16), (0.08, 0.5, 0.85)
 LM_VARIANTS_CPU = (2, 8, 8)
 # the train phase: (a) examples/train_lm.py's config and hyperparameters (its
-# "~100M" is param_count()'s 80,753,152), the launcher's run cut at a step (a
-# run to that step on the whole run's schedule) and resumed; (b) a full-width model: arch, B, T (TRAIN_4K's sequence), steps;
+# "~100M" is param_count()'s 80,753,152), resumed from the unbroken run's own
+# checkpoint at TRAIN_LM_STOP (the launcher saves after step 200 as 201);
+# (b) a full-width model: arch, B, T (TRAIN_4K's sequence), steps;
 # (c) card against CPU: the full-width model's depth and (B, T), and the smoke
 # configs of the four layer kinds
 TRAIN_LM_CFG = ModelConfig(name="repro-110m", family="dense", n_layers=12, d_model=512,
                            n_heads=8, n_kv_heads=4, head_dim=64, d_ff=2048, vocab_size=32_768,
                            act="silu", dtype="float32")
-TRAIN_LM_PARAMS, TRAIN_LM_STOP = 80_753_152, 200
+TRAIN_LM_PARAMS, TRAIN_LM_STOP = 80_753_152, 201
 TRAIN_LM = dict(steps=300, batch=8, seq_len=256)
 TRAIN_LM_HP = TrainHParams(peak_lr=3e-4, warmup=20, total_steps=300,
                            opt=OptConfig(name="adamw", weight_decay=0.01))
 TRAIN_BIG = ("gemma3-4b", 1, TRAIN_4K.seq_len, 5)
 TRAIN_CPU = (2, 1, 128)
 TRAIN_SMOKE = ("gemma3-4b", "recurrentgemma-9b", "xlstm-350m", "dbrx-132b")
+# the dist_train phase: the train phase's (a) config sharded over (2, 2) gloo
+# ranks for DIST_TRAIN_STEPS, a 1-rank nccl world, and the step-20 checkpoint
+# resumed on a (1, 4) mesh; the compression inputs' seed; the watchdog's limit;
+# the archs planned at full width on the production meshes
+DIST_TRAIN_STEPS, DIST_TRAIN_NCCL_STEPS, DIST_TRAIN_RESUMED_STEPS = 20, 3, 2
+DIST_TRAIN_SEED, DIST_TRAIN_STEP_LIMIT_S = 7, 30.0
+DIST_TRAIN_COMPRESS_N = TRAIN_LM_PARAMS
+DIST_TRAIN_PLAN_ARCHS = ("gemma3-4b", "llama4-maverick-400b-a17b")
 REPO = Path(__file__).resolve().parent
 
 
@@ -2405,8 +2443,9 @@ def checkpoint_writes() -> tuple[list, object]:
 
 def train_example(tmp: str, card: str) -> dict:
     """(a) The reference's training example: examples/train_lm.py's config
-    through ``launch.train.run`` for 300 steps, unbroken and cut at 200
-    then resumed, under ``torch.use_deterministic_algorithms``."""
+    through ``launch.train.run`` for 300 steps, then resumed from a copy of
+    that run's own mid-run checkpoint to the end, under
+    ``torch.use_deterministic_algorithms``."""
     cfg = TRAIN_LM_CFG
     n = sum(p.numel() for p in Transformer(cfg, device="meta").parameters())
     require(n == TRAIN_LM_PARAMS == cfg.param_count(), f"train (a): {n:,} params")
@@ -2418,21 +2457,29 @@ def train_example(tmp: str, card: str) -> dict:
         t0 = time.perf_counter()
         whole = launch_train.run(cfg, ckpt_dir=dirs["whole"], **kw)
         whole_s = time.perf_counter() - t0
-        first = launch_train.run(cfg, ckpt_dir=dirs["cut"], **dict(kw, steps=TRAIN_LM_STOP))
-        cut_steps = Checkpointer(CheckpointConfig(dirs["cut"])).all_steps()
+        # the launcher saves after step 50k as step 50k + 1; keep=3 leaves
+        # the resume point TRAIN_LM_STOP among the unbroken run's checkpoints
+        kept = Checkpointer(CheckpointConfig(dirs["whole"])).all_steps()
+        require(TRAIN_LM_STOP in kept, f"train (a): the unbroken run kept {kept}")
+        os.makedirs(dirs["cut"])
+        shutil.copytree(os.path.join(dirs["whole"], f"step_{TRAIN_LM_STOP:010d}"),
+                        os.path.join(dirs["cut"], f"step_{TRAIN_LM_STOP:010d}"))
+        t0 = time.perf_counter()
         rest = launch_train.run(cfg, ckpt_dir=dirs["cut"], **kw)
+        rest_s = time.perf_counter() - t0
     finally:
         torch.use_deterministic_algorithms(False)
         undo()
     steps = TRAIN_LM["steps"]
     require(len(whole) == steps and whole[-1] < whole[0],
             f"train (a): the loss did not fall: {whole[0]} -> {whole[-1]}")
-    require(cut_steps[-1] == TRAIN_LM_STOP and len(rest) == steps - TRAIN_LM_STOP,
-            f"train (a): cut run's checkpoints {cut_steps}, resumed for {len(rest)} steps")
-    if first + rest != whole:
-        at = next(i for i, (x, y) in enumerate(zip(first + rest, whole)) if x != y)
-        raise AssertionError(f"train (a): the cut and resumed run's loss at step {at} differs from "
-                             f"the unbroken run's: {(first + rest)[at]} vs {whole[at]}")
+    require(len(rest) == steps - TRAIN_LM_STOP,
+            f"train (a): resumed at {TRAIN_LM_STOP} for {len(rest)} steps")
+    if rest != whole[TRAIN_LM_STOP:]:
+        at = next(i for i, (x, y) in enumerate(zip(rest, whole[TRAIN_LM_STOP:])) if x != y)
+        raise AssertionError(f"train (a): the resumed run's loss at step {TRAIN_LM_STOP + at} "
+                             f"differs from the unbroken run's: {rest[at]} vs "
+                             f"{whole[TRAIN_LM_STOP + at]}")
     final = {k: Checkpointer(CheckpointConfig(d)).latest_step() for k, d in dirs.items()}
     require(final == {"whole": steps, "cut": steps}, f"train (a): final checkpoints {final}")
     a, b = (os.path.join(d, f"step_{steps:010d}") for d in dirs.values())
@@ -2457,19 +2504,21 @@ def train_example(tmp: str, card: str) -> dict:
            "losses_every_50": whole[::50], "s_per_step": whole_s / steps, "run_s": whole_s,
            "tokens_per_s": steps * TRAIN_LM["batch"] * TRAIN_LM["seq_len"] / whole_s,
            "resumed_at": TRAIN_LM_STOP, "resume_equal": "bit for bit (deterministic algorithms)",
+           "resumed_run_s": rest_s, "kept_checkpoints": kept,
            "checkpoint_bytes": ckpt_bytes, "checkpoint_writes": len(writes),
            "save_s_median": float(np.median(save_s)), "save_s_max": max(save_s),
-           "cut_checkpoints": cut_steps, "fs": fs_type(tmp), "profile": prof}
+           "fs": fs_type(tmp), "profile": prof}
     log("train", f"(a) examples/train_lm.py's config ({cfg.n_layers} x {cfg.d_model}, vocab "
         f"{cfg.vocab_size:,}, float32, {n:,} params = param_count()) through launch.train.run, "
         f"B={TRAIN_LM['batch']} T={TRAIN_LM['seq_len']}, AdamW (weight decay "
         f"{TRAIN_LM_HP.opt.weight_decay}, warmup {TRAIN_LM_HP.warmup}), {steps} steps in "
         f"{whole_s:.1f} s ({out['s_per_step'] * 1e3:.1f} ms a step with the loss read back each "
         f"step and the saves, {out['tokens_per_s']:,.0f} tokens/s): loss {whole[0]:.4f} -> "
-        f"{whole[-1]:.4f} (every 50 steps {[round(x, 4) for x in whole[::50]]}); cut at "
-        f"{TRAIN_LM_STOP} (checkpoints {cut_steps}) and resumed there: the last "
-        f"{steps - TRAIN_LM_STOP} losses and the step-{steps} checkpoint equal the unbroken run's "
-        f"bit for bit under torch.use_deterministic_algorithms(True); {len(writes)} checkpoint "
+        f"{whole[-1]:.4f} (every 50 steps {[round(x, 4) for x in whole[::50]]}); resumed from a "
+        f"copy of the unbroken run's own step-{TRAIN_LM_STOP} checkpoint (it kept {kept}; no "
+        f"second run to {TRAIN_LM_STOP}) in {rest_s:.1f} s: the last {steps - TRAIN_LM_STOP} "
+        f"losses and the step-{steps} checkpoint equal the unbroken run's bit for bit under "
+        f"torch.use_deterministic_algorithms(True); {len(writes)} checkpoint "
         f"writes of {ckpt_bytes / 1e9:.2f} GB, median {out['save_s_median']:.2f} s, most "
         f"{out['save_s_max']:.2f} s, to {out['fs']} ({tmp}); one step profiled: "
         f"{prof['device_busy_ms']:.1f} ms of kernels, {prof['device_launches']} launches, busy "
@@ -2558,6 +2607,312 @@ def train_phase(tmp: str, card: str) -> dict:
         f"{out['peak_allocated_gb']:.2f} GB above the {base_bytes / 1e9:.2f} GB held before the "
         f"phase, on {card}")
     print(json.dumps({"train": out, "card": card}), flush=True)
+    return out
+
+
+# ------------------------------------------------------- the dist_train phase
+def timed_dist() -> dict:
+    """Wrap ``torch.distributed``'s ``all_gather``, ``reduce_scatter`` and
+    ``all_reduce`` to add each call's host-clock seconds (the card drained
+    before and after) to the returned dict; for one instrumented step,
+    not the timed ones."""
+    spent = {"s": 0.0, "calls": 0}
+    for name in ("all_gather", "reduce_scatter", "all_reduce"):
+        real = getattr(torch.distributed, name)
+
+        def timed(*args, _real=real, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _real(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+            return out
+
+        setattr(torch.distributed, name, timed)
+    return spent
+
+
+def state_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in flatten_with_paths(tree).values()
+               if isinstance(t, torch.Tensor))
+
+
+def dist_train_specs(layout):
+    meta = Transformer(TRAIN_LM_CFG, device="meta")
+    return make_train_state_specs(reference_leaves(meta), reference_axes(meta), layout,
+                                  TRAIN_LM_HP.opt.name)
+
+
+def dist_compress_rank(mesh) -> dict:
+    """(a) ``compressed_psum`` over this rank's ``data`` group (the world on
+    a 1-rank mesh) against this process's plain computation of the same
+    sum: every member's input drawn again from its seed, quantised, the
+    codes summed in int32 and the scales in rank order."""
+    dev = mesh.device
+    draw = lambda r: torch.randn(DIST_TRAIN_COMPRESS_N, generator=torch.Generator(dev).manual_seed(
+        DIST_TRAIN_SEED + r), device=dev)
+    axis = "data" if mesh.size("data") > 1 else "model"
+    group = mesh.group(axis)
+    got = compressed_psum(draw(mesh.rank), group)
+    line = list(mesh.coords)  # this rank's line along axis: the group's ranks
+    line[mesh.axis_names.index(axis)] = slice(None)
+    members = np.arange(math.prod(mesh.shape)).reshape(mesh.shape)[tuple(line)].tolist()
+    q_sum, s_sum = None, None
+    for r in members:
+        q, s, n = quantize_int8(draw(r))
+        q_sum = q.to(torch.int32) if q_sum is None else q_sum + q.to(torch.int32)
+        s_sum = s if s_sum is None else s_sum + s
+    want = dequantize_int8(q_sum, s_sum / torch.full_like(s_sum, float(len(members))), n,
+                           got.shape)
+    same(got, want, f"dist_train (a): compressed_psum over {axis} of {members} vs plain")
+    return {"axis": axis, "members": members, "n": n}
+
+
+def dist_train_rank(mesh, tmp: str, steps: int, save: bool, restore_step: int | None) -> dict:
+    """(b)/(c) One rank of the sharded train step on examples/train_lm.py's
+    config: ``steps`` steps from the seeded init (or from ``restore_step``'s
+    checkpoint, re-sharded onto this mesh), each under a ``StepWatchdog``;
+    the step-``steps`` checkpoint when ``save``; each step's loss, grad norm
+    and lr, ms a step, state bytes held, peak memory, and the collectives'
+    share of one more, instrumented step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank}
+    if restore_step is None and (mesh.size("data") > 1 or math.prod(mesh.shape) == 1):
+        out["compress"] = dist_compress_rank(mesh)
+    cfg, hp = TRAIN_LM_CFG, TRAIN_LM_HP
+    layout = make_layout("train", mesh)
+    specs = dist_train_specs(layout)
+    shardings = named_shardings(mesh, specs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(cfg, hp, torch.Generator(mesh.device).manual_seed(0), layout=layout)
+    ckpt = Checkpointer(CheckpointConfig(os.path.join(tmp, "dist_train_ckpt"), keep=2))
+    start = 0
+    if restore_step is not None:
+        state = ckpt.restore(state, step=restore_step, shardings=shardings)
+        start = int(state.step)
+    out["state_bytes"] = state_bytes(state)
+    step = make_train_step(cfg, hp, layout=layout, grad_specs=specs.params)
+    ds = TokenStreamConfig(cfg.vocab_size, TRAIN_LM["seq_len"], TRAIN_LM["batch"])
+    wd = StepWatchdog(limit_s=DIST_TRAIN_STEP_LIMIT_S)
+    rows = []
+    for i in range(start, start + steps):
+        t0 = time.perf_counter()
+        with wd:
+            state, m = step(state, batch_at_step(ds, i))
+            torch.cuda.synchronize()
+        rows.append({"s": time.perf_counter() - t0, **{k: float(v) for k, v in m.items()}})
+    out["rows"] = rows
+    out["watchdog"] = {"p50_s": wd.p50, "adaptive_limit_s": wd.adaptive_limit(), "trips": wd.trips,
+                       "limit_s": wd.limit_s}
+    if save:
+        ckpt.save(start + steps, state, shardings=shardings, blocking=True)
+        out["shard_sha256"] = {k: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+                               for k, t in state.params.items()}
+    spent = timed_dist()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch_at_step(ds, start + steps))
+    torch.cuda.synchronize()
+    out["instrumented"] = {"step_s": time.perf_counter() - t0, **spent}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def params_close(got: dict, want: dict, lr_sum: float, what: str) -> dict:
+    """Params after several steps from two runs (leaf path -> tensor):
+    ``assert_step_close``'s bound (tests/test_torch_train.py) with the
+    step's lr replaced by the sum of the steps' lrs, since each step may
+    move an element apart by up to 2.2 lr where float32 noise tips Adam's
+    normalised step: every element within 1e-6 of its leaf's scale plus
+    2.2 x that sum, and the share past 1e-6 scale + that sum / 100
+    reported."""
+    apart, n, worst = 0, 0, 0.0
+    for k, w in want.items():
+        d = (got[k].double().cpu() - w.double().cpu()).abs()
+        scale = float(w.abs().max())
+        require(float(d.max()) <= 1e-6 * scale + 2.2 * lr_sum,
+                f"{what}: {k} apart by {float(d.max())} (scale {scale}, lr sum {lr_sum})")
+        apart += int((d > 1e-6 * scale + 1e-2 * lr_sum).sum())
+        n += d.numel()
+        worst = max(worst, float(d.max()) / lr_sum)
+    return {"apart": apart, "elements": n, "apart_share": apart / n, "max_abs_over_lr_sum": worst}
+
+
+def losses_close(got: list, want: list, what: str) -> float:
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    require(len(got) == len(want) and rel <= 2e-4, f"{what}: losses {got} vs {want} "
+            f"(max relative {rel:.2e}, rtol 2e-4)")
+    return rel
+
+
+def plan_bytes(arch: str, multi_pod: bool) -> dict:
+    """(d) Per-rank bytes of the float32 masters and AdamW moments under
+    ``make_train_state_specs`` on a production mesh, from shapes on the
+    meta device: nothing is allocated."""
+    cfg = get_config(arch)
+    meta = Transformer(cfg, device="meta")
+    leaves = reference_leaves(meta)
+    mesh = abstract_production_mesh(multi_pod=multi_pod)
+    specs = make_train_state_specs(leaves, reference_axes(meta), make_layout("train", mesh,
+                                   multi_pod=multi_pod), "adamw")
+    per_rank = 0
+    for spec_tree in (specs.params, specs.opt.m, specs.opt.v):
+        for k, spec in spec_tree.items():
+            per_rank += 4 * math.prod(NamedSharding(mesh, spec).shard_shape(tuple(leaves[k].shape)))
+    whole = 12 * sum(t.numel() for t in leaves.values())
+    return {"mesh": list(mesh.shape), "params": whole // 12, "bytes_per_rank": per_rank,
+            "bytes_whole": whole, "ranks": math.prod(mesh.shape)}
+
+
+def dist_train_phase(tmp: str, card: str) -> dict:
+    """Sharded training on the one card (the module docstring's dist_train)."""
+    t_phase = time.perf_counter()
+    cfg, hp = TRAIN_LM_CFG, TRAIN_LM_HP
+    out = {}
+    # (a) quantize_int8 on the card == the CPU, at the 12 x 512 model's gradient size
+    x = torch.from_numpy(np.random.default_rng(DIST_TRAIN_SEED).standard_normal(
+        TRAIN_LM_PARAMS, dtype=np.float32))
+    got, want = quantize_int8(x.cuda()), quantize_int8(x)
+    require(got[2] == want[2] == TRAIN_LM_PARAMS, f"dist_train (a): n {got[2]} / {want[2]}")
+    same(got[0].cpu(), want[0], "dist_train (a): int8 codes, card vs CPU")
+    same(got[1].cpu(), want[1], "dist_train (a): scales, card vs CPU")
+    nb = got[1].numel()
+    wire = {"int8_codes_plus_scales": TRAIN_LM_PARAMS + 4 * nb, "float32": 4 * TRAIN_LM_PARAMS,
+            "int32_widened_plus_scales": 4 * TRAIN_LM_PARAMS + 4 * nb}
+    out["compress"] = {"n": TRAIN_LM_PARAMS, "blocks": nb, "bytes": wire}
+    log("dist_train", f"(a) quantize_int8 of {TRAIN_LM_PARAMS:,} seeded float32 values (the "
+        f"12 x 512 model's gradient size): card == CPU bit for bit (codes, {nb:,} scales, n); a "
+        f"reduction's payload {wire['int8_codes_plus_scales'] / 1e6:.1f} MB as int8 codes plus "
+        f"scales against {wire['float32'] / 1e6:.1f} MB as float32 "
+        f"({wire['float32'] / wire['int8_codes_plus_scales']:.2f}x less); compressed_psum's "
+        f"all-reduce moves the codes widened to int32, {wire['int32_widened_plus_scales'] / 1e6:.1f} "
+        f"MB, as the reference's psum does, on {card}")
+    del x, got, want
+    # the single-device reference run: the same init, the same batches
+    ds = TokenStreamConfig(cfg.vocab_size, TRAIN_LM["seq_len"], TRAIN_LM["batch"])
+    t0 = time.perf_counter()
+    single = make_train_state(cfg, hp, torch.Generator("cuda").manual_seed(0))
+    one_bytes = state_bytes(state_tree(single))
+    step = make_train_step(cfg, hp)
+    ref = []
+    for i in range(DIST_TRAIN_STEPS):
+        single, m = step(single, batch_at_step(ds, i))
+        ref.append({k: float(v) for k, v in m.items()})
+    single_s = time.perf_counter() - t0
+    ref_params = {k: v.clone() for k, v in state_tree(single).params.items()}
+    del single, step
+    torch.cuda.empty_cache()
+    # (b) the (2, 2) gloo mesh, 20 steps, the step-20 checkpoint
+    runs = {}
+    for name, shape, backend, steps, save, restore in (
+            ("gloo_2x2", (2, 2), "gloo", DIST_TRAIN_STEPS, True, None),
+            ("nccl_1x1", (1, 1), "nccl", DIST_TRAIN_NCCL_STEPS, False, None),
+            ("gloo_1x4_restored", (1, 4), "gloo", DIST_TRAIN_RESUMED_STEPS, False, DIST_TRAIN_STEPS)):
+        t0 = time.perf_counter()
+        ranks = spawn_local(dist_train_rank, shape, backend=backend, device="cuda:0",
+                            timeout_s=DIST_TIMEOUT_S, args=(tmp, steps, save, restore))
+        runs[name] = {"ranks": ranks, "wall_s": time.perf_counter() - t0, "shape": shape,
+                      "backend": backend}
+        for r in ranks[1:]:
+            require([x["loss"] for x in r["rows"]] == [x["loss"] for x in ranks[0]["rows"]],
+                    f"dist_train {name}: ranks report different losses")
+    # (c) elastic restore: the (2, 2) run's step-20 checkpoint on one device
+    ck = Checkpointer(CheckpointConfig(os.path.join(tmp, "dist_train_ckpt"), keep=2))
+    one = make_train_state(cfg, hp, torch.Generator("cuda").manual_seed(0))
+    one = load_state_tree(one, ck.restore(state_tree(one), step=DIST_TRAIN_STEPS))
+    leaves = {k: v.clone() for k, v in state_tree(one).params.items()}
+    mesh22 = AbstractMesh(("data", "model"), (2, 2))
+    specs22 = dist_train_specs(make_layout("train", mesh22))
+    for r in runs["gloo_2x2"]["ranks"]:
+        for k, sha in r["shard_sha256"].items():
+            block = leaves[k][NamedSharding(mesh22, specs22.params[k]).block(
+                tuple(leaves[k].shape), r["rank"])]
+            require(hashlib.sha256(block.contiguous().cpu().numpy().tobytes()).hexdigest() == sha,
+                    f"dist_train (c): rank {r['rank']}'s block of {k} != the one-device restore")
+    step = make_train_step(cfg, hp)
+    resumed = []
+    for i in range(DIST_TRAIN_STEPS, DIST_TRAIN_STEPS + DIST_TRAIN_RESUMED_STEPS):
+        one, m = step(one, batch_at_step(ds, i))
+        resumed.append(float(m["loss"]))
+    del one, step
+    torch.cuda.empty_cache()
+    # the checks
+    ref_loss = [x["loss"] for x in ref]
+    r22 = runs["gloo_2x2"]["ranks"]
+    rel = {"gloo_2x2": losses_close([x["loss"] for x in r22[0]["rows"]], ref_loss,
+                                    "dist_train (b) (2, 2) vs one device"),
+           "nccl_1x1": losses_close([x["loss"] for x in runs["nccl_1x1"]["ranks"][0]["rows"]],
+                                    ref_loss[:DIST_TRAIN_NCCL_STEPS],
+                                    "dist_train (b) nccl vs one device"),
+           "gloo_1x4_restored": losses_close(
+               [x["loss"] for x in runs["gloo_1x4_restored"]["ranks"][0]["rows"]], resumed,
+               "dist_train (c) (1, 4) restored vs one device restored")}
+    close = params_close(leaves, ref_params, sum(x["lr"] for x in ref),
+                         "dist_train (b) the (2, 2) run's step-20 params vs one device's")
+    for a, b in zip(r22[0]["rows"], ref):
+        require(a["lr"] == b["lr"], f"dist_train (b): lr {a['lr']} vs {b['lr']}")
+    for r in runs["gloo_2x2"]["ranks"] + runs["nccl_1x1"]["ranks"]:
+        c = r.get("compress")
+        if c is not None:
+            log("dist_train", f"(a) rank {r['rank']}: compressed_psum over {c['axis']} (ranks "
+                f"{c['members']}) of {c['n']:,} values == one process's plain sum bit for bit "
+                f"(int32 code sums, scales, output)")
+    # per rank
+    for name, run in runs.items():
+        for r in run["ranks"]:
+            s_step = float(np.median([x["s"] for x in r["rows"][1:]])) if len(r["rows"]) > 1 else r["rows"][0]["s"]
+            r["ms_a_step"] = s_step * 1e3
+            inst = r["instrumented"]
+            r["collective_share"] = inst["s"] / inst["step_s"]
+            log("dist_train", f"{name} ({run['backend']}, mesh {run['shape']}) rank {r['rank']}: "
+                f"state {r['state_bytes'] / 1e6:.1f} MB held against {one_bytes / 1e6:.1f} MB on "
+                f"one device ({r['state_bytes'] / one_bytes:.3f}); peak {r['peak_bytes'] / 2**30:.2f} "
+                f"GiB; {r['ms_a_step']:.1f} ms a step (median of steps 2-{len(r['rows'])}); "
+                f"collectives {r['collective_share']:.1%} of an instrumented step "
+                f"({inst['s'] * 1e3:.1f} of {inst['step_s'] * 1e3:.1f} ms, {inst['calls']} calls); "
+                f"watchdog p50 {r['watchdog']['p50_s'] * 1e3:.1f} ms, adaptive_limit "
+                f"{r['watchdog']['adaptive_limit_s']:.1f} s, trips {r['watchdog']['trips']} on {card}")
+    out["runs"] = {name: {"mesh": list(run["shape"]), "backend": run["backend"],
+                          "wall_s": run["wall_s"],
+                          "losses": [x["loss"] for x in run["ranks"][0]["rows"]],
+                          "ranks": [{k: r[k] for k in ("rank", "state_bytes", "peak_bytes",
+                                                       "ms_a_step", "collective_share",
+                                                       "watchdog", "instrumented")}
+                                    for r in run["ranks"]]}
+                   for name, run in runs.items()}
+    out.update({"single_losses": ref_loss, "single_s": single_s, "one_device_state_bytes": one_bytes,
+                "loss_max_rel": rel, "params_step20": close, "resumed_single": resumed})
+    log("dist_train", f"(b) examples/train_lm.py's config ({TRAIN_LM_PARAMS:,} params, float32, "
+        f"TF32 off), B={TRAIN_LM['batch']} T={TRAIN_LM['seq_len']}, AdamW, REPRO_GRAD_SHARD="
+        f"{os.environ.get('REPRO_GRAD_SHARD', '1')}: {DIST_TRAIN_STEPS} steps on a (2, 2) gloo mesh "
+        f"(4 ranks sharing the card) within {rel['gloo_2x2']:.2e} relative of one device's "
+        f"losses (rtol 2e-4; {[round(x, 4) for x in ref_loss[::5]]} every 5 steps), "
+        f"{DIST_TRAIN_NCCL_STEPS} on a 1-rank nccl world within {rel['nccl_1x1']:.2e}; the step-"
+        f"{DIST_TRAIN_STEPS} params (the checkpoint, gathered) within the bound of each step's lr "
+        f"summed: {json.dumps(close)}; one device's {DIST_TRAIN_STEPS} steps "
+        f"{single_s:.1f} s on {card}")
+    log("dist_train", f"(c) the (2, 2) run's step-{DIST_TRAIN_STEPS} checkpoint restored on one "
+        f"device == every rank's blocks bit for bit; restored on a (1, 4) mesh (shardings=): "
+        f"{DIST_TRAIN_RESUMED_STEPS} steps within {rel['gloo_1x4_restored']:.2e} relative of one "
+        f"device's {DIST_TRAIN_RESUMED_STEPS} steps from the same checkpoint on {card}")
+    # (d) plans at full width, shapes only
+    out["plans"] = {}
+    for arch in DIST_TRAIN_PLAN_ARCHS:
+        for mp in (False, True):
+            p = plan_bytes(arch, mp)
+            out["plans"][f"{arch} {'x'.join(map(str, p['mesh']))}"] = p
+            log("dist_train", f"(d) {arch} ({p['params']:,} params) train state (float32 masters "
+                f"+ AdamW moments) under make_train_state_specs on {p['mesh']}: "
+                f"{p['bytes_per_rank'] / 1e9:.2f} GB a rank of {p['bytes_whole'] / 1e9:.1f} GB "
+                f"({p['ranks']} ranks; shapes on the meta device, nothing allocated; the step also "
+                f"holds the gathered compute tree, {p['params'] * 4 / 1e9:.1f} GB, and gradients)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("dist_train", f"phase {out['phase_s']:.1f} s (spawn to join: "
+        f"{json.dumps({k: round(v['wall_s'], 1) for k, v in runs.items()})}) on {card}")
+    print(json.dumps({"dist_train": out, "card": card}), flush=True)
     return out
 
 
@@ -3041,6 +3396,7 @@ def main(argv=None) -> int:
         lm_kinds_phase(eng, q, targets, card, cap)
         lm_variants_phase(card)
         train_phase(tmp, card)
+        dist_train_phase(tmp, card)
         scan_phase(eng, q, targets, gt, card, cap)
         del eng, mem_runs
         torch.cuda.empty_cache()

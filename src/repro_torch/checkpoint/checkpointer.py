@@ -13,6 +13,13 @@ restores the other's checkpoints:
     stay; ``latest_step`` / ``all_steps`` list the published ones;
   * ``restore(template)`` rebuilds the template's structure from disk.
 
+A sharded tree (a ZeRO ``TrainState`` on a mesh, its ``NamedSharding``
+tree as ``shardings``) is saved whole: ``save`` gathers each leaf from
+every rank's block and rank 0 writes the same files as an unsharded
+save, so a checkpoint is the same whatever the mesh.
+``restore(..., shardings=)`` reads each full leaf and keeps this rank's
+block, re-sharding onto the live mesh (the reference's elastic restore).
+
 A tree is nested dicts, lists, tuples and NamedTuples (fields by name)
 of tensors or numpy arrays; a leaf's path joins the keys with ``/``, as
 the reference's ``tree_flatten_with_path`` names it.  ``save`` copies
@@ -33,6 +40,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,14 +92,34 @@ class Checkpointer:
         self._thread: threading.Thread | None = None
 
     # -- save ---------------------------------------------------------------
-    def save(self, step: int, tree: Any, *, blocking: bool | None = None) -> None:
+    def save(self, step: int, tree: Any, *, blocking: bool | None = None,
+             shardings: Any | None = None) -> None:
         """Copy every leaf to the host, then write step ``step`` (in the
-        background unless ``blocking``; default: ``not async_write``)."""
-        host_leaves = {k: _host(v) for k, v in flatten_with_paths(tree).items()}
+        background unless ``blocking``; default: ``not async_write``).
+
+        ``shardings``: ``tree``'s leaves are this rank's blocks and
+        ``shardings`` their ``NamedSharding`` tree; every rank of the mesh
+        calls ``save``, each leaf is gathered whole (collectives), and
+        rank 0 writes.  A blocking sharded save ends in a barrier, so
+        every rank may read the step once it returns."""
+        leaves = flatten_with_paths(tree)
+        mesh = None
+        if shardings is not None:
+            flat_sh = flatten_with_paths(shardings)
+            leaves = {k: flat_sh[k].gather(v, flat_sh[k].full_shape(tuple(v.shape)))
+                      for k, v in leaves.items()}
+            mesh = next(iter(flat_sh.values())).mesh
         blocking = (not self.config.async_write) if blocking is None else blocking
+        if mesh is not None and mesh.rank != 0:
+            if blocking:
+                dist.barrier()
+            return
+        host_leaves = {k: _host(v) for k, v in leaves.items()}
         self.wait()  # one in-flight write at a time
         if blocking:
             self._write(step, host_leaves)
+            if mesh is not None:
+                dist.barrier()
         else:
             self._thread = threading.Thread(target=self._write, args=(step, host_leaves),
                                             name="checkpoint-writer", daemon=True)
@@ -136,10 +164,14 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, *, step: int | None = None) -> Any:
+    def restore(self, template: Any, *, step: int | None = None,
+                shardings: Any | None = None) -> Any:
         """``template``'s structure rebuilt from step ``step`` (default: the
         latest).  Tensor leaves come back as new tensors on their template
-        leaf's device in the saved dtype, numpy leaves as numpy."""
+        leaf's device in the saved dtype, numpy leaves as numpy.
+        ``shardings`` (a tree of ``NamedSharding`` matching ``template``,
+        whose leaves are then this rank's blocks): each full leaf is read
+        and this rank's block kept, on whatever mesh saved it."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.config.directory}")
@@ -147,9 +179,18 @@ class Checkpointer:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
 
+        flat_sh = flatten_with_paths(shardings) if shardings is not None else {}
+
         def load(key: str, like):
             info = manifest["leaves"][key]
             arr = np.load(os.path.join(d, info["file"]))
+            if key in flat_sh:
+                if flat_sh[key].shard_shape(arr.shape) != tuple(like.shape):
+                    raise ValueError(f"checkpoint {d}: {key} of shape {arr.shape} has blocks of "
+                                     f"{flat_sh[key].shard_shape(arr.shape)} on this mesh, the "
+                                     f"template {tuple(like.shape)}")
+                block = flat_sh[key].shard(torch.from_numpy(arr))
+                return block.clone(memory_format=torch.contiguous_format).to(like.device)
             if tuple(arr.shape) != tuple(np.shape(like)):
                 raise ValueError(f"checkpoint {d}: {key} has shape {arr.shape}, the template "
                                  f"{tuple(np.shape(like))}")

@@ -1,0 +1,341 @@
+"""Logical-axis sharding rules (MaxText style) for every execution layout.
+
+Port of ``repro.distributed.sharding``.  Parameters and activations carry
+*logical* axis names ("embed", "ffn", "act_seq", ...); a ``Layout`` maps
+them to mesh axes for one execution mode, so a layout change moves the
+whole model without touching model code.
+
+Layouts (the reference's):
+
+* ``train`` / ``prefill`` -- data x sequence parallelism: activations
+  sharded batch -> ``data``, sequence -> ``model``; compute parameters
+  replicated, expert weights on ``model``;
+* ``decode`` -- tensor parallelism over ``model`` through the d_model
+  axis, the KV cache sharded over its sequence on ``model``;
+* ``long`` -- decode at batch 1: the cache sequence over ``data`` x
+  ``model``.
+
+Storage specs ("ZeRO"): master parameters and optimizer state are stored
+sharded over every free mesh axis, each placed greedily on the largest
+dimension it divides (ties to the lower index, as Python's stable
+``sorted`` orders them).
+
+What differs from the reference is who carries a spec out.  In the
+reference, XLA partitions one program by these specs and ``lshard``
+constrains activations inside it.  In the port a spec is a plan that an
+executor reads: ``train.train_step`` stores each leaf's shard and
+gathers, reduces and slices by the specs, and places the activations
+itself (the batch over ``act_batch``, the loss positions over
+``act_seq``).  So ``lshard`` is the identity here.  ``NamedSharding``
+holds a spec on a mesh and slices a full tensor to a rank's block, or
+gathers the blocks back.  A spec's meaning needs only the mesh's
+``axis_names`` and ``shape``: a live ``launch.mesh.Mesh`` and an
+``AbstractMesh`` (which joins no world) plan alike.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+# Activation logical axes.  "act_kv_seq" / "act_full_seq" are deliberately
+# unmapped (None) in the 2-D layouts: mapping them forces the all-gather of
+# full-length K/V (or a full sequence for strictly sequential recurrences).
+# "act_lru" channel-shards linear recurrences instead of sequence-sharding.
+_ACT_RULES = {
+    "train": {"act_batch": ("data",), "act_seq": ("model",), "act_lru": ("model",),
+              "experts": ("model",)},
+    "prefill": {"act_batch": ("data",), "act_seq": ("model",), "act_lru": ("model",),
+                "experts": ("model",)},
+    "decode": {"act_batch": ("data",), "cache_seq": ("model",), "embed": ("model",),
+               "experts": ("model",)},
+    "long": {"cache_seq": ("data", "model"), "embed": ("model",), "experts": ("model",)},
+}
+# Layout variants (per-arch overrides): "dp_only" folds the model axis into
+# batch parallelism, for archs with strictly sequential recurrences (xLSTM's
+# sLSTM) where sequence sharding cannot apply.
+_ACT_RULES_DP_ONLY = {
+    "train": {"act_batch": ("data", "model")},
+    "prefill": {"act_batch": ("data",), "act_seq": ("model",), "act_lru": ("model",)},
+}
+# Parameter logical axes (compute specs)
+_PARAM_RULES = {
+    "train": {"experts": ("model",)},
+    "prefill": {"experts": ("model",)},
+    "decode": {"embed": ("model",), "experts": ("model",)},
+    "long": {"embed": ("model",), "experts": ("model",)},
+}
+
+
+class PartitionSpec(tuple):
+    """A spec a dimension: ``None`` (replicated), a mesh axis name, or a
+    tuple of names (the first the major one), as ``jax.sharding.
+    PartitionSpec`` holds them.  Immutable; equal to the tuple of its
+    entries."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    kind: str | None  # train | prefill | decode | long | None
+    mesh: Any  # a launch.mesh.Mesh or AbstractMesh, or None
+    multi_pod: bool = False
+    variant: str = "default"  # default | dp_only
+
+    def _expand(self, axes_map: dict, name: str):
+        got = axes_map.get(name)
+        if got is None:
+            return None
+        if self.multi_pod:
+            # pod joins the batch-parallel group in train / prefill / decode
+            # and the sequence shard group in long-context decode; dp_only
+            # already folds model into batch (256-way), and a global batch of
+            # 256 cannot split 512 ways, so pod stays out of it there
+            if (name == "act_batch" and self.kind in ("train", "prefill", "decode")
+                    and self.variant != "dp_only"):
+                got = ("pod",) + tuple(got)
+            if name == "cache_seq" and self.kind == "long":
+                got = ("pod",) + tuple(got)
+        return tuple(got)
+
+    def act_axes(self, name: str):
+        if self.kind is None:
+            return None
+        rules = _ACT_RULES[self.kind]
+        if self.variant == "dp_only" and self.kind in _ACT_RULES_DP_ONLY:
+            rules = _ACT_RULES_DP_ONLY[self.kind]
+        return self._expand(rules, name)
+
+    def param_axes(self, name: str):
+        if self.kind is None:
+            return None
+        return self._expand(_PARAM_RULES[self.kind], name)
+
+
+def make_layout(kind: str | None, mesh, multi_pod: bool = False,
+                variant: str = "default") -> Layout:
+    return Layout(kind=kind, mesh=mesh, multi_pod=multi_pod, variant=variant)
+
+
+NULL_LAYOUT = Layout(kind=None, mesh=None)
+
+
+def _dedup(spec_list):
+    """A mesh axis may appear only once in a spec; keep its first use."""
+    seen: set = set()
+    out = []
+    for entry in spec_list:
+        if entry is None:
+            out.append(None)
+            continue
+        entry = tuple(a for a in entry if a not in seen)
+        seen.update(entry)
+        out.append(entry if entry else None)
+    return out
+
+
+def _spec(layout: Layout, names, lookup) -> PartitionSpec:
+    return P(*_dedup([lookup(n) for n in names]))
+
+
+def _axis_sizes(mesh) -> dict:
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+def lshard(x: torch.Tensor, layout: Layout | None, names) -> torch.Tensor:
+    """The identity.  The reference constrains an activation to its
+    layout's mapping here so that XLA partitions the program; the port
+    has no partitioner: the executor (``train.train_step``) places the
+    batch and the loss positions itself.  Checks the rank of ``x``
+    against ``names`` as the reference does."""
+    if layout is not None and layout.mesh is not None and layout.kind is not None:
+        if x.dim() != len(names):
+            raise ValueError(f"lshard: {tuple(x.shape)} against {names}")
+    return x
+
+
+def act_pspec(names, layout: Layout) -> PartitionSpec:
+    """The spec the reference's ``lshard`` gives an activation with
+    logical ``names``; the port's executor places data by it."""
+    if layout.mesh is None or layout.kind is None:
+        return P()
+    return _spec(layout, names, layout.act_axes)
+
+
+def param_pspec(names, layout: Layout) -> PartitionSpec:
+    """Compute-time spec of a parameter with logical ``names``."""
+    if layout.mesh is None or layout.kind is None:
+        return P()
+    return _spec(layout, names, layout.param_axes)
+
+
+def store_pspec(shape, names, layout: Layout) -> PartitionSpec:
+    """Storage (ZeRO) spec: the compute spec plus every free mesh axis
+    placed greedily on the largest dimension it divides.  For master
+    parameters and optimizer state."""
+    if layout.mesh is None or layout.kind is None:
+        return P()
+    shape = tuple(int(s) for s in shape)
+    base = _dedup([layout.param_axes(n) for n in names])
+    used = {a for entry in base if entry for a in entry}
+    free = [a for a in layout.mesh.axis_names if a not in used]
+    sizes = _axis_sizes(layout.mesh)
+    factor = [math.prod(sizes[a] for a in (entry or ())) for entry in base]
+    spec = [list(entry) if entry else [] for entry in base]
+    for ax in free:
+        s = sizes[ax]
+        for i in sorted(range(len(shape)), key=lambda i: -shape[i]):  # stable: ties to the lower index
+            if shape[i] % (factor[i] * s) == 0 and shape[i] // (factor[i] * s) >= 1:
+                spec[i].append(ax)
+                factor[i] *= s
+                break
+    return P(*_dedup([tuple(e) if e else None for e in spec]))
+
+
+def is_axes_leaf(t) -> bool:
+    """A logical-axes tuple (names or None), the leaf of an axes tree."""
+    return isinstance(t, tuple) and all(isinstance(x, (str, type(None))) for x in t)
+
+
+def map_axes(fn, axes_tree, *trees):
+    """``fn(axes, *leaves)`` over an axes tree (nested dicts, lists and
+    tuples whose leaves are axes tuples) and trees of the same structure;
+    returns a tree of the axes tree's structure."""
+    if is_axes_leaf(axes_tree):
+        return fn(axes_tree, *trees)
+    if isinstance(axes_tree, dict):
+        return {k: map_axes(fn, a, *(t[k] for t in trees)) for k, a in axes_tree.items()}
+    if isinstance(axes_tree, (list, tuple)):
+        return type(axes_tree)(map_axes(fn, a, *(t[i] for t in trees))
+                               for i, a in enumerate(axes_tree))
+    raise TypeError(f"map_axes: {type(axes_tree).__name__} in an axes tree")
+
+
+def tree_pspecs(axes_tree, params_tree, layout: Layout, stored: bool):
+    """(axes tree, params tree) -> a tree of specs: storage specs from the
+    leaves' shapes when ``stored``, else compute specs."""
+
+    def one(axes, leaf):
+        if stored:
+            return store_pspec(tuple(leaf.shape), axes, layout)
+        return param_pspec(axes, layout)
+
+    return map_axes(one, axes_tree, params_tree)
+
+
+# ------------------------------------------------------------- execution
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def rank_coords(mesh, rank: int) -> dict:
+    """{axis: coordinate} of ``rank`` (ranks row-major over the shape)."""
+    return dict(zip(mesh.axis_names, (int(c) for c in np.unravel_index(rank, mesh.shape))))
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """``spec`` on ``mesh``: a rank holds, along each dimension, the block
+    its coordinates on that dimension's axes select (the first axis of an
+    entry the major one), as ``jax.sharding.NamedSharding`` lays blocks
+    out on devices.  Axes a spec does not name replicate the block."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+    def _entries(self, ndim: int) -> list[tuple]:
+        if len(self.spec) > ndim:
+            raise ValueError(f"{self.spec} has more entries than {ndim} dimensions")
+        return [_entry_axes(e) for e in self.spec] + [()] * (ndim - len(self.spec))
+
+    def replicated(self) -> bool:
+        return not any(_entry_axes(e) for e in self.spec)
+
+    def full_shape(self, shard_shape) -> tuple:
+        """The full tensor's shape from a block's."""
+        sizes = _axis_sizes(self.mesh)
+        return tuple(n * math.prod(sizes[a] for a in axes)
+                     for n, axes in zip(shard_shape, self._entries(len(shard_shape))))
+
+    def shard_shape(self, shape) -> tuple:
+        sizes = _axis_sizes(self.mesh)
+        out = []
+        for n, axes in zip(shape, self._entries(len(shape))):
+            k = math.prod(sizes[a] for a in axes)
+            if n % k:
+                raise ValueError(f"{self.spec}: dimension {n} of {tuple(shape)} is not split "
+                                 f"{k} ways evenly")
+            out.append(n // k)
+        return tuple(out)
+
+    def block(self, shape, rank: int) -> tuple:
+        """``rank``'s block of a full tensor of ``shape``, as slices."""
+        sizes, coords = _axis_sizes(self.mesh), rank_coords(self.mesh, rank)
+        out = []
+        for n, m, axes in zip(shape, self.shard_shape(shape), self._entries(len(shape))):
+            idx = 0
+            for a in axes:
+                idx = idx * sizes[a] + coords[a]
+            out.append(slice(idx * m, (idx + 1) * m))
+        return tuple(out)
+
+    def owns(self, rank: int) -> bool:
+        """Whether ``rank`` is the first holder of its block: coordinate 0
+        on every axis the spec does not name.  Summing a quantity over
+        the owners counts each element once."""
+        named = {a for e in self.spec for a in _entry_axes(e)}
+        coords = rank_coords(self.mesh, rank)
+        return all(coords[a] == 0 for a in self.mesh.axis_names if a not in named)
+
+    def shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full`` (a view)."""
+        return full[self.block(tuple(full.shape), self.mesh.rank)]
+
+    def gather(self, local: torch.Tensor, shape) -> torch.Tensor:
+        """The full tensor of ``shape`` from every rank's block: one
+        ``all_gather`` over the world (every rank must call it)."""
+        shape = tuple(shape)
+        world = math.prod(self.mesh.shape)
+        if world == 1 or self.replicated():
+            return local.clone()
+        parts = [torch.empty_like(local) for _ in range(world)]
+        dist.all_gather(parts, local.contiguous())
+        full = local.new_empty(shape)
+        for r, part in enumerate(parts):
+            full[self.block(shape, r)] = part
+        return full
+
+
+def map_specs(fn, specs, *trees):
+    """``fn(spec, *leaves)`` over a tree of specs (NamedTuples, dicts,
+    lists and tuples whose leaves are ``PartitionSpec``) and trees of the
+    same structure; returns a tree of the specs tree's structure."""
+    if isinstance(specs, PartitionSpec):
+        return fn(specs, *trees)
+    if isinstance(specs, tuple) and hasattr(specs, "_fields"):
+        return type(specs)(*(map_specs(fn, getattr(specs, f), *(getattr(t, f) for t in trees))
+                             for f in specs._fields))
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v, *(t[k] for t in trees)) for k, v in specs.items()}
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(map_specs(fn, v, *(t[i] for t in trees)) for i, v in enumerate(specs))
+    raise TypeError(f"map_specs: {type(specs).__name__} in a specs tree")
+
+
+def named_shardings(mesh, specs):
+    """A tree of ``NamedSharding`` on ``mesh`` from a tree of specs."""
+    return map_specs(lambda spec: NamedSharding(mesh, spec), specs)

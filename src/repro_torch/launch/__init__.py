@@ -1,5 +1,7 @@
 """Launch helpers: process-group meshes over ``torch.distributed``."""
 from repro_torch.launch.mesh import (
+    AbstractMesh,
+    abstract_production_mesh,
     Mesh,
     make_local_mesh,
     make_mesh,
@@ -7,4 +9,5 @@ from repro_torch.launch.mesh import (
     spawn_local,
 )
 
-__all__ = ["Mesh", "make_local_mesh", "make_mesh", "make_production_mesh", "spawn_local"]
+__all__ = ["AbstractMesh", "abstract_production_mesh", "Mesh", "make_local_mesh", "make_mesh",
+           "make_production_mesh", "spawn_local"]

@@ -19,8 +19,12 @@ staged through the host), so several ranks can share one card; ``nccl``
 takes CUDA tensors only and refuses two ranks on one device.
 
 ``spawn_local`` runs a function on every rank of a mesh, one process per
-rank on this host, and returns each rank's result.  Importing this
-module starts nothing.
+rank on this host, and returns each rank's result.  ``AbstractMesh`` has
+axis names and a shape and joins no world: the counterpart of the
+reference's mesh over placeholder devices (its dry run), on which the
+sharding plans (``distributed.sharding``) are computed for the
+production meshes without 256 processes.  Importing this module starts
+nothing.
 """
 from __future__ import annotations
 
@@ -65,6 +69,27 @@ class Mesh:
         """The process group of the ranks that differ from this one only
         along ``axis``, ranked by their coordinate on it."""
         return self.groups[axis]
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Axis names and a shape, no processes: for planning only.  A spec's
+    meaning needs just these two (``distributed.sharding``); an executor
+    that moves data raises on it."""
+    axis_names: tuple[str, ...]
+    shape: tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axis_names):
+            raise ValueError(f"shape {self.shape} and axes {self.axis_names} differ in length")
+
+
+def abstract_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production meshes as an ``AbstractMesh``: 16 x 16
+    (``data``, ``model``) or 2 x 16 x 16 (``pod``, ``data``, ``model``)."""
+    if multi_pod:
+        return AbstractMesh(AXES_3D, (2, 16, 16))
+    return AbstractMesh(AXES_2D, (16, 16))
 
 
 def make_mesh(shape, axis_names, *, backend: str, store, rank: int, world_size: int,

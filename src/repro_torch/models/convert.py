@@ -20,6 +20,12 @@ tensor and the layers' parameters views of it, so an optimizer reads and
 updates the reference's stacked leaves (Adafactor's update clipping and
 the 8-bit moments' blocks span every unit of a leaf) with no copy.
 
+``reference_axes`` gives the logical-axes tree of the reference's
+``init_model(...)[1]`` (with ``quantize_axes`` applied to a w8a16 model)
+keyed by the same leaf paths, for the sharding plans; it reads shapes
+only, so a ``Transformer(cfg, device="meta")`` plans a full-width model
+without memory.
+
 The tree is given as numpy arrays (``jax.tree.map(np.asarray, params)``
 on the reference's side); this module imports nothing of JAX.
 """
@@ -172,3 +178,77 @@ def reference_leaves(model: Transformer) -> dict[str, torch.Tensor]:
                     leaves[path] = ps[0].detach()
         model.__dict__["_reference_leaves"] = leaves
     return leaves
+
+
+# ------------------------------------------------------------ logical axes
+def _ffn_linears(prefix: str) -> dict:
+    return {f"{prefix}/gate": (("embed",), ("ffn",)), f"{prefix}/up": (("embed",), ("ffn",)),
+            f"{prefix}/down": (("ffn",), ("embed",))}
+
+
+# a linear's module path in a layer -> (input axes, output axes), as each
+# kind's reference ``init_*`` passes them to ``init_linear``
+_LINEAR_AXES = {
+    "attn/wq": (("embed",), ("heads", "head_dim")),
+    "attn/wk": (("embed",), ("kv_heads", "head_dim")),
+    "attn/wv": (("embed",), ("kv_heads", "head_dim")),
+    "attn/wo": (("heads",), ("embed",)),
+    **_ffn_linears("ffn"), **_ffn_linears("moe/shared"), **_ffn_linears("slstm/ffn"),
+    "moe/router": (("embed",), ("experts",)),
+    "rglru/w_rec": (("embed",), ("lru",)), "rglru/w_gate": (("embed",), ("lru",)),
+    "rglru/w_out": (("lru",), ("embed",)), "rglru/w_a": (("lru",), ("lru",)),
+    "rglru/w_i": (("lru",), ("lru",)),
+    "mlstm/w_up": (("embed",), ("inner",)), "mlstm/w_gate": (("embed",), ("inner",)),
+    "mlstm/wq": (("inner",), ("heads", "head_dim")), "mlstm/wk": (("inner",), ("heads", "head_dim")),
+    "mlstm/w_i": (("inner",), ("heads",)), "mlstm/w_f": (("inner",), ("heads",)),
+    "mlstm/w_out": (("inner",), ("embed",)),
+    **{f"slstm/w_{g}": (("embed",), ("heads", "head_dim")) for g in "ifzo"},
+}
+# the other leaves of a layer: norms' scales, raw tensors
+_LEAF_AXES = {
+    "moe/w_gate": ("experts", "embed", "ffn"), "moe/w_up": ("experts", "embed", "ffn"),
+    "moe/w_down": ("experts", "ffn", "embed"),
+    "rglru/lam": ("lru",), "rglru/conv_w": ("conv", "lru"), "rglru/conv_b": ("lru",),
+    "mlstm/conv_w": ("conv", "inner"), "mlstm/conv_b": ("inner",),
+    **{f"slstm/r_{g}": ("heads", "head_dim", "head_dim") for g in "ifzo"},
+}
+
+
+def _layer_leaf_axes(path: tuple, stacked: bool) -> tuple:
+    """The logical axes of a layer's leaf at ``path`` (its keys in the
+    layer), with the leading ``"layers"`` axis of a stacked unit leaf.  A
+    w8a16 ``w_s`` drops the first axis of its weight's axes, stacked or
+    not, as the reference's ``quantize_axes`` does."""
+    lead = ("layers",) if stacked else ()
+    if path[-1] == "scale":  # every norm's scale is ("embed",), as init_norm names it
+        return lead + ("embed",)
+    module, leaf = "/".join(path[:-1]), path[-1]
+    if module in _LINEAR_AXES and leaf in ("w", "w_q", "w_s", "b"):
+        in_axes, out_axes = _LINEAR_AXES[module]
+        w = lead + in_axes + out_axes
+        return {"w": w, "w_q": w, "w_s": w[1:], "b": lead + out_axes}[leaf]
+    key = "/".join(path)
+    if key not in _LEAF_AXES:
+        raise KeyError(f"reference_axes: no logical axes for the layer leaf {key!r}")
+    return lead + _LEAF_AXES[key]
+
+
+def reference_axes(model: Transformer) -> dict[str, tuple]:
+    """The reference's logical-axes tree of ``model`` (``init_model``'s
+    second result; ``quantize_axes``' tree for a w8a16 model): each leaf's
+    path, as ``reference_leaves`` names it, to its axes tuple, in the
+    reference's flattening order.  Reads shapes and names only: a model on
+    the meta device plans a full-width arch."""
+    cfg = model.cfg
+    n_unit = len(cfg.pattern_unit)
+    out = [(("embed",), ("vocab", "embed")), (("final_norm", "scale"), ("embed",))]
+    if model.unembed is not None:
+        out.append((("unembed",), ("embed", "vocab")))
+    for pos in range(n_unit if cfg.n_units else 0):
+        out += [(("units", str(pos), *path), _layer_leaf_axes(path, stacked=True))
+                for path, _ in _layer_items(model.layers[pos])]
+    for i, layer in enumerate(model.layers[cfg.n_units * n_unit:]):
+        out += [(("leftover", i, *path), _layer_leaf_axes(path, stacked=False))
+                for path, _ in _layer_items(layer)]
+    out.sort(key=lambda kv: kv[0])
+    return {"/".join(map(str, path)): axes for path, axes in out}

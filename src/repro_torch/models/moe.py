@@ -27,6 +27,14 @@ combine's k terms are summed in k order where the reference's dot sums
 its E x C terms in its own order, within float32 rounding of k terms.
 The aux losses (``moe_aux``, the Switch load-balance loss, and
 ``moe_zloss``) come back in a dict as the reference returns them.
+
+``batch_mean`` (None on one device) is set by a sharded train step: it
+maps this rank's share of tokens routed to each expert to the whole
+batch's (an all-reduce; no gradient flows through it), because the
+Switch loss ``E * sum(frac_tokens * mean_prob)`` is a product of two
+batch means.  ``mean_prob`` enters linearly, so its global mean needs no
+collective here: the step averages each rank's aux term over the ranks
+(``train.train_step``), which sums the gradient as the whole batch's.
 """
 from __future__ import annotations
 
@@ -73,6 +81,7 @@ class MoE(nn.Module):
         d, e, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
         kw = dict(generator=generator, device=device)
         self.cfg = cfg
+        self.batch_mean = None  # a sharded train step's all-reduce of frac_tokens
         self.router = Linear(d, e, **kw)
         self.w_gate = nn.Parameter(normal_init((e, d, ff), d ** -0.5, generator, device),
                                    requires_grad=False)
@@ -130,6 +139,8 @@ class MoE(nn.Module):
             out = out + self.shared(x)
         # Switch load-balance loss + router z-loss
         frac_tokens = r.onehot.sum(dim=2).mean(dim=(0, 1))  # (E,) share routed
+        if self.batch_mean is not None:
+            frac_tokens = self.batch_mean(frac_tokens)
         mean_prob = r.probs.mean(dim=(0, 1))
         aux = e * torch.sum(frac_tokens * mean_prob) * cfg.router_aux_coef
         zloss = 1e-4 * torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)

@@ -2,9 +2,10 @@
 
 Port of ``repro.models.zoo``'s concrete half: ``init_params`` and
 ``make_concrete_batch``.  The reference's ``input_specs`` /
-``abstract_params`` / ``param_axes`` build ``jax.ShapeDtypeStruct``
-stand-ins for its multi-pod dry run (``eval_shape``); they wait for the
-port's dry-run counterpart.  Stub frontends surface here as in the
+``abstract_params`` build ``jax.ShapeDtypeStruct`` stand-ins for its
+multi-pod dry run (``eval_shape``); they wait for the port's dry-run
+counterpart.  ``param_axes`` is ``models.convert.reference_axes`` of a
+``Transformer(cfg, device="meta")``.  Stub frontends surface here as in the
 reference: internvl2's patch embeddings arrive as a precomputed
 ``prefix_embeds`` input.
 """

@@ -1,7 +1,7 @@
 """Optimizers: AdamW (float32 state), Adafactor (factored second moment)
 and blockwise 8-bit AdamW (quantised moments, float32 per-block scales).
 
-Port of ``repro.optim.adamw`` for one device.  Parameters, gradients and
+Port of ``repro.optim.adamw``.  Parameters, gradients and
 moments are dicts of tensors keyed by the reference's leaf paths
 (``models.convert.reference_leaves``), in its flattening order; a unit
 leaf is stacked over the units, as the reference's is, which matters
@@ -19,13 +19,29 @@ float32 as JAX's weak types are; ``b ** step`` is a float32 ``pow`` of a
 add into one FMA the jitted reference can differ in the last bit; the
 reductions (``global_norm``'s sums, Adafactor's means) sum in another
 order.  ``tests/test_torch_optim.py`` states the distances.
+
+Sharded (``Sharded``: each leaf's full shape and ``NamedSharding`` on a
+live mesh, as ``train.train_step`` stores a ZeRO state), the leaves are
+this rank's blocks.  ``global_norm`` sums the squares of the blocks each
+rank owns (a leaf, or part of one, replicated over an axis is counted on
+that axis's coordinate 0 only) and all-reduces one scalar.  AdamW is
+elementwise and runs on the blocks as it is.  Adafactor's row and column
+means, its row statistics' mean and its update RMS are sums over the
+whole leaf: each is summed over the owned blocks into the full
+statistic's shape and all-reduced over the world, and the factored
+statistics are gathered whole to update and sliced back to their
+storage blocks.  8-bit AdamW's moments are replicated (the reference's
+specs): it takes whole gradients, updates the whole moments on every
+rank and this rank's block of the parameters.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import math
+from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,17 +60,44 @@ class AdamWState(NamedTuple):
     v: dict
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+class Sharded(NamedTuple):
+    """How a sharded update's leaves lie on the mesh: ``shapes`` each
+    path's full shape, ``params`` each parameter's ``NamedSharding``
+    (also its gradient's and AdamW moments'), ``opt`` the optimizer
+    state's tree of ``NamedSharding`` (``make_train_state_specs``')."""
+    shapes: dict
+    params: dict
+    opt: Any
+
+    @property
+    def rank(self) -> int:
+        return next(iter(self.params.values())).mesh.rank
+
+
+def _all_reduce(x: torch.Tensor) -> torch.Tensor:
+    dist.all_reduce(x)
+    return x
+
+
+def global_norm(tree: dict, sharded: Sharded | None = None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, the leaves
-    summed in the dict's order (the reference's flattening order)."""
-    return sqrt(sum(torch.sum(torch.square(x.float())) for x in tree.values()))
+    summed in the dict's order (the reference's flattening order).
+    ``sharded``: the leaves are blocks; the squares of the blocks this
+    rank owns are summed and all-reduced over the world."""
+    if sharded is None:
+        return sqrt(sum(torch.sum(torch.square(x.float())) for x in tree.values()))
+    parts = [torch.sum(torch.square(x.float())) for k, x in tree.items()
+             if sharded.params[k].owns(sharded.rank)]
+    dev = next(iter(tree.values())).device
+    return sqrt(_all_reduce(sum(parts, torch.zeros((), device=dev))))
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: dict, max_norm: float) -> tuple[dict, torch.Tensor]:
+def clip_by_global_norm(grads: dict, max_norm: float,
+                        sharded: Sharded | None = None) -> tuple[dict, torch.Tensor]:
     """Scales every gradient in place by ``min(1, max_norm / max(norm,
     1e-9))``; returns (grads, the norm before clipping)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, sharded)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
     for g in grads.values():
         g.mul_(scale)
@@ -123,9 +166,54 @@ def adafactor_init(params: dict) -> AdafactorState:
     return AdafactorState(step=torch.zeros((), dtype=torch.int32, device=dev), vr=vr, vc=vc)
 
 
+def _sum_whole(part: torch.Tensor, shape, where: tuple, owner: bool) -> torch.Tensor:
+    """The world's sum of every rank's ``part``, placed at ``where`` in a
+    zero tensor of ``shape`` (nothing from a rank that is not ``owner``)."""
+    full = part.new_zeros(shape)
+    if owner:
+        full[where] = part
+    return _all_reduce(full)
+
+
+@torch.no_grad()
+def _adafactor_sharded(grads: dict, state: AdafactorState, params: dict, lr, cfg: OptConfig,
+                       sh: Sharded) -> AdafactorState:
+    """``adafactor_update`` on this rank's blocks (see the module docstring)."""
+    step, step_f = _new_step(state.step)
+    beta2 = 1.0 - step_f ** -0.8
+    rank = sh.rank
+    for k, p in params.items():
+        g, shape, psh = grads[k].float(), sh.shapes[k], sh.params[k]
+        g2 = g * g + 1e-30
+        where, owner = psh.block(shape, rank), psh.owns(rank)
+        vr, vc = state.vr[k], state.vc[k]
+        if len(shape) >= 2:
+            rows, cols = where[:-1], where[:-2] + where[-1:]
+            row_mean = _sum_whole(g2.sum(dim=-1), shape[:-1], rows, owner) / shape[-1]
+            col_mean = _sum_whole(g2.sum(dim=-2), shape[:-2] + shape[-1:], cols, owner) / shape[-2]
+            vr_sh, vc_sh = sh.opt.vr[k], sh.opt.vc[k]
+            vr_full = beta2 * vr_sh.gather(vr, shape[:-1]) + (1 - beta2) * row_mean
+            vc_full = beta2 * vc_sh.gather(vc, shape[:-2] + shape[-1:]) + (1 - beta2) * col_mean
+            vr.copy_(vr_sh.shard(vr_full))
+            vc.copy_(vc_sh.shard(vc_full))
+            r_norm = vr_full / torch.clamp_min(vr_full.mean(dim=-1, keepdim=True), 1e-30)
+            denom = r_norm[rows][..., None] * vc_full[cols][..., None, :]
+            u = g / sqrt(denom + cfg.eps)
+        else:  # vr is stored as the parameter is: the same block
+            vr.copy_(beta2 * vr + (1 - beta2) * g2)
+            u = g / sqrt(vr + cfg.eps)
+        sq = torch.sum(u * u) if owner else u.new_zeros(())
+        rms = sqrt(_all_reduce(sq) / math.prod(shape) + 1e-30)
+        u = u / torch.clamp_min(rms, 1.0)
+        p.sub_(lr * (u + cfg.weight_decay * p))
+    return AdafactorState(step=step, vr=state.vr, vc=state.vc)
+
+
 @torch.no_grad()
 def adafactor_update(grads: dict, state: AdafactorState, params: dict, lr,
-                     cfg: OptConfig) -> AdafactorState:
+                     cfg: OptConfig, sharded: Sharded | None = None) -> AdafactorState:
+    if sharded is not None:
+        return _adafactor_sharded(grads, state, params, lr, cfg, sharded)
     step, step_f = _new_step(state.step)
     beta2 = 1.0 - step_f ** -0.8  # the paper's schedule
     for k, p in params.items():
@@ -190,14 +278,17 @@ def adamw8bit_init(params: dict) -> Adam8State:
 
 @torch.no_grad()
 def adamw8bit_update(grads: dict, state: Adam8State, params: dict, lr,
-                     cfg: OptConfig) -> Adam8State:
+                     cfg: OptConfig, sharded: Sharded | None = None) -> Adam8State:
+    """``sharded``: ``grads`` are whole, ``params`` this rank's blocks."""
     step, step_f = _new_step(state.step)
     b1c, b2c = _bias_correction(cfg.b1, step_f), _bias_correction(cfg.b2, step_f)
     for k, p in params.items():
         g = grads[k].float()
-        m = cfg.b1 * _dequant(state.m_q[k], state.m_s[k], p.shape) + (1 - cfg.b1) * g
-        v = cfg.b2 * _dequant(state.v_q[k], state.v_s[k], p.shape) + (1 - cfg.b2) * g * g
-        p.sub_(lr * ((m / b1c) / (sqrt(v / b2c) + cfg.eps) + cfg.weight_decay * p))
+        shape = g.shape
+        m = cfg.b1 * _dequant(state.m_q[k], state.m_s[k], shape) + (1 - cfg.b1) * g
+        v = cfg.b2 * _dequant(state.v_q[k], state.v_s[k], shape) + (1 - cfg.b2) * g * g
+        mb, vb = (m, v) if sharded is None else (sharded.params[k].shard(m), sharded.params[k].shard(v))
+        p.sub_(lr * ((mb / b1c) / (sqrt(vb / b2c) + cfg.eps) + cfg.weight_decay * p))
         for q, s, x in ((state.m_q[k], state.m_s[k], m), (state.v_q[k], state.v_s[k], v)):
             nq, ns = _quant(x)
             q.copy_(nq)
@@ -211,6 +302,11 @@ def opt_init(params: dict, cfg: OptConfig):
             "adamw8bit": adamw8bit_init}[cfg.name](params)
 
 
-def opt_update(grads: dict, state, params: dict, lr, cfg: OptConfig):
-    return {"adamw": adamw_update, "adafactor": adafactor_update,
-            "adamw8bit": adamw8bit_update}[cfg.name](grads, state, params, lr, cfg)
+def opt_update(grads: dict, state, params: dict, lr, cfg: OptConfig,
+               sharded: Sharded | None = None):
+    """``sharded``: the leaves are this rank's blocks (whole gradients for
+    8-bit AdamW); AdamW's update is elementwise and needs nothing more."""
+    if cfg.name == "adamw":
+        return adamw_update(grads, state, params, lr, cfg)
+    return {"adafactor": adafactor_update,
+            "adamw8bit": adamw8bit_update}[cfg.name](grads, state, params, lr, cfg, sharded)

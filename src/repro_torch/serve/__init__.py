@@ -1,10 +1,8 @@
 """Serving: the LM's prefill and decode steps, ``RAGServer`` (retrieval
-and generation) and the multi-tenant ``ServeFrontend``.
-
-The reference's ``cache_pspecs`` (cache shardings) waits for the port's
-sharding layouts.
+and generation) and the multi-tenant ``ServeFrontend``; ``cache_pspecs``
+plans the caches' sharding under a layout.
 """
-from repro_torch.serve.decode import make_serve_step
+from repro_torch.serve.decode import cache_pspecs, make_serve_step
 from repro_torch.serve.prefill import make_prefill_step
 from repro_torch.serve.rag import RAGRequest, RAGServer
 from repro_torch.serve.server import (
@@ -19,6 +17,7 @@ from repro_torch.serve.server import (
 )
 
 __all__ = [
+    "cache_pspecs",
     "make_serve_step",
     "make_prefill_step",
     "RAGRequest",

@@ -40,7 +40,8 @@ GUARD = textwrap.dedent("""
 # modules the port must hold: the disk tier, the kernels, the build, the cache
 # tiers, telemetry, retrieval serving, distributed search, and the LM side
 # (configs, models, the token stream, the prefill and decode steps, the
-# optimizers, the train step, the checkpointer and the training launcher)
+# optimizers, the train step, the checkpointer and the training launcher),
+# and the sharding plans, gradient compression and fault tolerance
 EXPECTED = {
     "repro_torch.core.engine", "repro_torch.core.search", "repro_torch.core.pq",
     "repro_torch.core.io_model", "repro_torch.core.graph",
@@ -65,6 +66,8 @@ EXPECTED = {
     "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.schedules",
     "repro_torch.train", "repro_torch.train.train_step",
     "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
+    "repro_torch.distributed", "repro_torch.distributed.compression",
+    "repro_torch.distributed.fault_tolerance", "repro_torch.distributed.sharding",
 }
 
 
