@@ -83,7 +83,8 @@ each printing its own lines:
      ``make_serve_step`` at B = 8 with bf16 caches of 2,112 for 64 steps
      (p50/p99 beside the bf16 weights' byte bound, and the bytes the
      per-call casts from the float32 masters move); ``RAGServer.generate``
-     of 8 labelled requests on the 1M index (gate L = 64, W = 8, K = 10,
+     (the model's depth cut to 12 layers, printed as a CUT, for the run's
+     time) of 8 labelled requests on the 1M index (gate L = 64, W = 8, K = 10,
      32-token passages and prompts, 16 new tokens), its retrieved ids equal
      to a direct search bit for bit and its launches counted under
      ``rag_generate``; then (a) the float32 model's cached decode against
@@ -103,13 +104,14 @@ each printing its own lines:
      decode B = 8 with bf16 caches of 2,112 for 64 steps (p50 /
      p99 beside the byte bound, one step profiled; dbrx's decode capacity
      and dropped token-expert pairs); ``RAGServer.generate`` over
-     recurrentgemma-9b as in the lm phase, its ids equal to a direct
+     recurrentgemma-9b (its depth cut to 12 layers, a CUT) as in the lm phase, its ids equal to a direct
      search and its launches under ``rag_generate_hybrid``; (a) float32
      decode against the full forward (B = 2, T = 48; dbrx at a capacity
      that drops nothing), (b) card against CPU at 1-3 layers (prefill and
      decode within 1e-4), (c) the four new configs' smoke models (llama4
      only there) card against CPU; the phase's peak memory and seconds;
-  lm_variants. gemma3-4b at full width and depth decoding (B = 8, caches
+  lm_variants. gemma3-4b at full width, its depth cut to 12 layers (a
+     CUT, for the run's time), decoding (B = 8, caches
      of 2,112, 64 steps, ``make_serve_step``) four ways, each model freed
      before the next: bf16 as the lm phase; w8a16 (``quantize_model`` on
      the card, layer by layer); the int8 KV cache (``REPRO_KV_INT8=1``);
@@ -151,6 +153,34 @@ each printing its own lines:
      (``shardings=``), 2 steps there within rtol 2e-4 of one device's;
      (d) per-rank bytes of the train state of gemma3-4b and
      llama4-maverick on the production meshes, from shapes alone;
+  dist_serve. The serving layouts executed on a mesh: one ``spawn_local``
+     of 4 gloo ranks sharing the card, run as (1, 4) and then (2, 2)
+     (``Mesh.reshape``), each rank's parameters drawn a leaf at a time
+     from the one-device init's generator: gemma3-4b ``decode`` at full
+     width and depth on (1, 4) (B = 8, bf16 caches of 2,112 holding one
+     device's 64-token prompt, each rank its blocks of them, then 16
+     greedy steps; a CUT, printed: the prompt is not teacher-forced on the
+     mesh) and its float32 twin (a 4-token prompt, 4 greedy steps),
+     ``RAGServer(..., layout=)`` ``generate`` in float32 over a
+     20,000-vector engine (each rank its own, loaded from one file;
+     prompts cut to 2 hits of 4 tokens and 4 tokens, printed), dbrx-132b (2 of 40 layers) and
+     xlstm-350m in float32 and recurrentgemma-9b in bf16 ``decode`` (16
+     steps each); then on (2, 2) gemma3-4b ``long`` (B = 1, LONG_500K's 524,288
+     slots filled with seeded K/V, 8 steps), gemma3-4b ``prefill`` (B = 8,
+     T = 2,048, ZeRO-stored parameters gathered a layer at a time) and
+     xlstm-350m ``prefill`` (B = 8, T = 512).  Each run replays the tokens
+     one device was fed in the lm and lm_kinds phases (their saved
+     references): logits within the bar of one device's (3e-2 of the
+     largest in bf16, the LM tests' bar; 1e-4 in float32, the lm phases'
+     full-width bar; or twice one device's own distance under another
+     summation order, the larger),
+     greedy tokens equal at every step whose one-device top-2 gap exceeds
+     the bar, prefill K/V blocks held likewise, dbrx's routed and dropped
+     pairs equal, ``generate``'s tokens equal up to each row's first
+     close step; per run the ms a step, the collectives' share of an
+     instrumented step and their bytes by kind, state bytes and peak
+     memory a rank.  ``python3 chip_smoke.py --only dist_serve`` runs it
+     alone with its references (no result line);
   6. the brute-force PQ scan: every code scored by ``pq.adc_lookup``,
      filtered, top-10 by two levels of ``kernels.ops.topk_merge``;
   7. card vs CPU on a 20,000-vector index in all five modes;
@@ -173,6 +203,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import hashlib
 import json
 import math
@@ -209,10 +240,11 @@ from repro_torch.checkpoint.checkpointer import flatten_with_paths  # noqa: E402
 from repro_torch.distributed.compression import (  # noqa: E402
     compressed_psum, dequantize_int8, quantize_int8)
 from repro_torch.distributed.fault_tolerance import StepWatchdog  # noqa: E402
-from repro_torch.distributed.sharding import NamedSharding, make_layout, named_shardings  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    ONE, NamedSharding, make_layout, named_shardings)
 from repro_torch.models.convert import reference_axes, reference_leaves  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
-from repro_torch.configs.base import TRAIN_4K, ModelConfig  # noqa: E402
+from repro_torch.configs.base import LONG_500K, TRAIN_4K, ModelConfig  # noqa: E402
 from repro_torch.data.tokens import TokenStreamConfig, batch_at_step  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import zoo  # noqa: E402
@@ -224,6 +256,7 @@ from repro_torch.train.train_step import (  # noqa: E402
     load_state_tree, make_train_state_specs, state_tree)
 from repro_torch.serve import RAGRequest, RAGServer, ServeFrontend, TenantSpec  # noqa: E402
 from repro_torch.serve import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.serve.decode import cache_blocks  # noqa: E402
 from repro_torch.store.adaptive import AdaptiveRecordCache  # noqa: E402
 from repro_torch.store.cache import record_nbytes  # noqa: E402
 from repro_torch.store.disk import DiskRecordStore  # noqa: E402
@@ -262,6 +295,11 @@ DIST_CAP, DIST_TIMEOUT_S = 65_536, 300
 # prompt and new tokens
 LM_ARCH, LM_PREFILL, LM_DECODE = "gemma3-4b", (8, 2048), (8, 2112, 64)
 LM_REQUESTS, LM_PASSAGE, LM_PROMPT, LM_NEW = 8, 32, 32, 16
+# the depth generate runs at over the 1M index (lm, lm_kinds) and the lm_variants
+# decodes run at: cut so that the whole smoke, the dist_serve phase included,
+# stays within its time (PERF.md, PR 23)
+LM_GENERATE_DEPTH = {"gemma3-4b": 12, "recurrentgemma-9b": 12}
+LM_VARIANTS_DEPTH = 12
 LM_PARITY_BT, LM_CPU_PROMPT, LM_CPU_NEW = (2, 48), 16, 16
 # the lm_kinds phase: each config with its depth cut (None: full depth) and
 # the parameter count of the reference's init_model tree at that depth
@@ -309,6 +347,28 @@ DIST_TRAIN_STEPS, DIST_TRAIN_NCCL_STEPS, DIST_TRAIN_RESUMED_STEPS = 20, 3, 2
 DIST_TRAIN_SEED, DIST_TRAIN_STEP_LIMIT_S = 7, 30.0
 DIST_TRAIN_COMPRESS_N = TRAIN_LM_PARAMS
 DIST_TRAIN_PLAN_ARCHS = ("gemma3-4b", "llama4-maverick-400b-a17b")
+# the dist_serve phase: gemma3-4b decode on (1, 4) (B, prompt, new tokens, bf16
+# cache length); long on (2, 2) (steps, LONG_500K's cache length; B = 1); the
+# kinds' decode on (1, 4) (B, prompt, new tokens: 16 steps); xlstm-350m prefill on
+# (2, 2) (B, T); RAGServer.generate under gemma3-4b's decode layout on (1, 4) over
+# an engine of DIST_SERVE_RAG["n"] seeded vectors; the bf16 bar (of the largest
+# logit); the long caches' K/V seeded in chunks of DIST_SERVE_CHUNK slots
+DIST_SERVE_DECODE = (8, 64, 16, 2112)
+DIST_SERVE_LONG = (8, LONG_500K.seq_len)
+# each kind's depth (None: full) and activation dtype (None: the config's):
+# dbrx-132b and xlstm-350m decode in float32, where bf16 order noise neither
+# moves the MoE's routing nor is carried up by the sLSTM's exponential gates
+# past what tells a fault from noise (PERF.md)
+DIST_SERVE_KINDS = {"dbrx-132b": (2, "float32"), "recurrentgemma-9b": (None, None),
+                    "xlstm-350m": (None, "float32")}
+DIST_SERVE_KINDS_DECODE = (8, 8, 9)
+DIST_SERVE_XLSTM_PREFILL = (8, 512)
+DIST_SERVE_RAG = dict(n=20_000, requests=8, k=2, passage=4, prompt=4, new=8)
+DIST_SERVE_F32 = (8, 2, 3)  # gemma3-4b's float32 twin: B, prompt, new tokens
+# of the largest: bf16 the LM tests' bar; float32 at full width the card-vs-CPU
+# bar of the lm phases' (b) (the tests' 2e-5 is for the smoke configs' widths)
+DIST_SERVE_BAR = {"bfloat16": 3e-2, "float32": 1e-4}
+DIST_SERVE_CHUNK, DIST_SERVE_TIMEOUT_S = 4096, 600
 REPO = Path(__file__).resolve().parent
 
 
@@ -1929,13 +1989,19 @@ def lm_decode_run(phase: str, model, cfg, n_params: int, first: np.ndarray, card
     return d
 
 
-def lm_generate(phase: str, path: str, eng, q, targets, cfg, model, card: str,
-                cap: Capture) -> dict:
+def lm_generate(phase: str, path: str, eng, q, targets, cfg, card: str, cap: Capture) -> dict:
     """``RAGServer.generate`` of LM_REQUESTS labelled requests on the 1M
     index: its retrieved ids and stats equal a direct search bit for bit;
     its kernel launches counted under ``path``; one decode step (float32
-    caches) profiled."""
+    caches) profiled.  The model is ``cfg``'s at full width with its depth
+    cut to LM_GENERATE_DEPTH, drawn from the phase's seed (so its layers
+    are the full model's first)."""
     dev = eng.device
+    depth = LM_GENERATE_DEPTH[cfg.name]
+    log(phase, f"CUT: generate runs {cfg.name} at full width with its depth cut from "
+        f"{cfg.n_layers} to {depth} layers, for the whole smoke's time (PERF.md)")
+    cfg = dataclasses.replace(cfg, n_layers=depth)
+    model = zoo.init_params(cfg, torch.Generator("cuda").manual_seed(0), device=dev)
     n = int(eng.codes.shape[0])
     passages = np.random.default_rng(5).integers(0, cfg.vocab_size, (n, LM_PASSAGE)).astype(np.int32)
     search = SearchConfig(mode="gate", **SEARCH)
@@ -2019,8 +2085,9 @@ def lm_init(phase: str, cfg, dev, card: str, want_params: int | None = None):
     return model, n_params, out
 
 
-def lm_phase(eng, q, targets, card: str, cap: Capture) -> dict:
-    """The LM serving path at full width (the module docstring's lm step)."""
+def lm_phase(eng, q, targets, card: str, cap: Capture, ref_dir: str) -> dict:
+    """The LM serving path at full width (the module docstring's lm step);
+    the dist_serve phase's gemma3-4b references saved under ``ref_dir``."""
     dev = eng.device
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2030,7 +2097,8 @@ def lm_phase(eng, q, targets, card: str, cap: Capture) -> dict:
     model, n_params, out = lm_init("lm", cfg, dev, card)
     out["prefill"], batch = lm_prefill_run("lm", model, cfg, n_params, *LM_PREFILL, card)
     out["decode"] = lm_decode_run("lm", model, cfg, n_params, batch["tokens"], card)
-    out["generate"] = lm_generate("lm", "rag_generate", eng, q, targets, cfg, model, card, cap)
+    out["generate"] = lm_generate("lm", "rag_generate", eng, q, targets, cfg, card, cap)
+    out.update(dist_serve_refs_gemma(model, cfg, ref_dir, card))
     del model
     torch.cuda.empty_cache()
 
@@ -2044,23 +2112,36 @@ def lm_phase(eng, q, targets, card: str, cap: Capture) -> dict:
 
 
 # ---------------------------------------------------------- the lm_kinds phase
+@contextlib.contextmanager
+def routings(model):
+    """While the block runs, every MoE layer's ``route_logits`` appends its
+    ``Routing`` to the yielded list."""
+    seen, moes = [], [layer.moe for layer in model.layers if getattr(layer, "moe", None) is not None]
+    for moe in moes:
+        def route(logits, real=moe.route_logits):
+            seen.append(real(logits))
+            return seen[-1]
+        moe.route_logits = route
+    try:
+        yield seen
+    finally:
+        for moe in moes:
+            del moe.route_logits
+
+
 def moe_drops(model, run) -> dict:
     """``run()`` with every MoE layer's routing kept: its capacity, the
     token-expert pairs routed and those dropped past capacity."""
-    seen, moes = [], [layer.moe for layer in model.layers if getattr(layer, "moe", None) is not None]
-    for moe in moes:
-        def route(xg, real=moe.route):
-            seen.append(real(xg))
-            return seen[-1]
-        moe.route = route
-    try:
+    with routings(model) as seen:
         run()
-    finally:
-        for moe in moes:
-            del moe.route
     return {"capacity": seen[0].capacity, "layers": len(seen),
             "pairs": sum(r.kept.numel() for r in seen),
             "dropped": sum(int((~r.kept).sum()) for r in seen)}
+
+
+def kept_pairs(seen: list) -> list:
+    """Each routing's kept pairs: its experts, -1 where a pair drops."""
+    return [torch.where(r.kept, r.experts, -1).cpu() for r in seen]
 
 
 def lm_kinds_prefill_t(model, cfg, card: str) -> tuple[int, dict]:
@@ -2106,10 +2187,12 @@ def lm_kinds_prefill_t(model, cfg, card: str) -> tuple[int, dict]:
     return cut, out
 
 
-def lm_kinds_model(arch: str, depth, want: int, eng, q, targets, card: str, cap: Capture) -> dict:
+def lm_kinds_model(arch: str, depth, want: int, eng, q, targets, card: str, cap: Capture,
+                   ref_dir: str) -> dict:
     """One config of the lm_kinds phase at full width (depth cut to
     ``depth`` layers when given): prefill, decode, ``generate`` for the
-    hybrid model, then invariants (a) and (b)."""
+    hybrid model, the dist_serve phase's references, then invariants (a)
+    and (b)."""
     dev = eng.device
     cfg = get_config(arch)
     if depth:
@@ -2142,7 +2225,9 @@ def lm_kinds_model(arch: str, depth, want: int, eng, q, targets, card: str, cap:
             f"{drops['capacity']} slots, so each step reads every expert's weights, on {card}")
     if arch == LM_KINDS_GENERATE:
         out["generate"] = lm_generate("lm_kinds", "rag_generate_hybrid", eng, q, targets, cfg,
-                                      model, card, cap)
+                                      card, cap)
+    if arch in DIST_SERVE_KINDS:
+        out.update(dist_serve_refs_kind(model, cfg, ref_dir, card))
     del model, batch
     torch.cuda.empty_cache()
     a_cfg, what = cfg, "T < the window, so this holds the windowed layers whole"
@@ -2175,7 +2260,7 @@ def lm_kinds_smoke(dev, card: str) -> dict:
     return out
 
 
-def lm_kinds_phase(eng, q, targets, card: str, cap: Capture) -> dict:
+def lm_kinds_phase(eng, q, targets, card: str, cap: Capture, ref_dir: str) -> dict:
     """The MoE, RG-LRU and xLSTM layer kinds at full width (the module
     docstring's lm_kinds step)."""
     torch.cuda.empty_cache()
@@ -2183,7 +2268,7 @@ def lm_kinds_phase(eng, q, targets, card: str, cap: Capture) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base_bytes = torch.cuda.memory_allocated()
     t_phase = time.perf_counter()
-    out = {arch: lm_kinds_model(arch, depth, want, eng, q, targets, card, cap)
+    out = {arch: lm_kinds_model(arch, depth, want, eng, q, targets, card, cap, ref_dir)
            for arch, depth, want in LM_KINDS}
     out["smoke_card_vs_cpu_max_abs_err"] = lm_kinds_smoke(eng.device, card)
     out["peak_allocated_gb"] = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
@@ -2412,11 +2497,14 @@ def lm_variants_phase(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base_bytes = torch.cuda.memory_allocated()
     t_phase = time.perf_counter()
-    cfg = get_config(LM_ARCH)
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=LM_VARIANTS_DEPTH)
+    log("lm_variants", f"CUT: the decodes run {full.name} at full width with its depth cut from "
+        f"{full.n_layers} to {cfg.n_layers} layers, for the whole smoke's time (PERF.md)")
     n_params = cfg.param_count()
     out = {name: variant_decode(name, w8, kv8, cfg, n_params, card)
            for name, (w8, kv8) in LM_VARIANTS.items()}
-    out["checks"] = variant_checks(cfg, card)
+    out["checks"] = variant_checks(full, card)
     out["peak_allocated_gb"] = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
     out["phase_s"] = time.perf_counter() - t_phase
     log("lm_variants", f"phase {out['phase_s']:.1f} s; peak device memory allocated "
@@ -2916,6 +3004,674 @@ def dist_train_phase(tmp: str, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------- the dist_serve phase
+def order_noise(model, run):
+    """``run()`` with every ``Linear`` of ``model`` taking its product as a
+    float32 product of the rounded operands, rounded once (the split
+    products' path, on one rank), and every ``torch.bmm`` (the MoE
+    experts') likewise: the same function summed in another order, so
+    its distance from the plain run is one device's own sensitivity to
+    summation order."""
+    linears = [m for m in model.modules() if isinstance(m, Linear)]
+    bmm = torch.bmm
+    for m in linears:
+        m.reduce = ONE
+    torch.bmm = lambda a, b: bmm(a.float(), b.float()).to(torch.promote_types(a.dtype, b.dtype))
+    try:
+        return run()
+    finally:
+        torch.bmm = bmm
+        for m in linears:
+            m.reduce = None
+
+
+def replay(model, cfg, fed: torch.Tensor, first: int, pos0: int, caches: list) -> torch.Tensor:
+    """The fed tokens through ``make_serve_step`` from ``pos0``: the logits
+    of the steps from ``first`` on (steps, B, V)."""
+    step, out = make_serve_step(cfg), []
+    for t in range(fed.shape[1]):
+        r = step(model, caches, fed[:, t:t + 1], pos0 + t)
+        if t >= first:
+            out.append(r["logits"][:, 0].cpu())
+    return torch.stack(out)
+
+
+def serve_decode_ref(model, cfg, b: int, prompt: int, new: int, length: int, seed: int,
+                     cache_dtype=torch.bfloat16, handover: str | None = None) -> dict:
+    """One device's decode for the dist_serve phase: a seeded (b, prompt)
+    prompt teacher-forced, then ``new`` greedy tokens fed back, into caches
+    of ``length``.  Returns the tokens fed at each step from ``first`` on
+    (the ranks replay them from position ``pos0``), the greedy steps'
+    logits (new, b, V) float32 and tokens, the pairs each MoE routing
+    dropped, and ``noise``: the largest distance of the greedy steps'
+    replay under ``order_noise``.  With ``handover`` (a path), the caches
+    as they stand before the last prompt token are saved there and the
+    ranks start from their blocks of them (``cache_blocks``), replaying
+    the greedy steps alone."""
+    toks = torch.from_numpy(batch_at_step(TokenStreamConfig(cfg.vocab_size, prompt, b, seed=seed),
+                                          0)["tokens"]).to(model.device)
+    step = make_serve_step(cfg)
+    caches = model.init_caches(b, length, cache_dtype)
+    tok, fed, logits, nexts, saved = toks[:, :1], [], [], [], None
+    with routings(model) as seen:
+        for t in range(prompt + new - 1):
+            if t + 1 == prompt:
+                saved = [{k: v.clone() for k, v in c.items()} for c in caches]
+                if handover:
+                    del seen[:]  # the ranks route the greedy steps alone
+            fed.append(tok)
+            r = step(model, caches, tok, t)
+            if t + 1 >= prompt:
+                logits.append(r["logits"][:, 0].cpu())
+                nexts.append(r["next_tokens"][:, 0].cpu())
+            tok = toks[:, t + 1:t + 2] if t + 1 < prompt else r["next_tokens"]
+    drops = kept_pairs(seen)
+    first = prompt - 1
+    fed, logits = torch.cat(fed, dim=1), torch.stack(logits)
+    if handover:
+        torch.save([{k: v.cpu() for k, v in c.items()} for c in saved], handover)
+    noise = order_noise(model, lambda: replay(model, cfg, fed[:, first:], 0, first, saved))
+    return {"fed": (fed[:, first:] if handover else fed).cpu(), "first": 0 if handover else first,
+            "pos0": first if handover else 0, "logits": logits, "tokens": torch.stack(nexts),
+            "drops": drops, "dtype": cfg.dtype, "cache_dtype": cache_dtype,
+            "noise": float((noise - logits).abs().max()), "handover": handover}
+
+
+def fill_long(caches: list, cfg, shard, n_filled: int, length: int) -> None:
+    """Every attention cache as if positions 0..n_filled-1 had been decoded
+    into caches of ``length``: each slot's position, and K/V drawn in
+    chunks of DIST_SERVE_CHUNK slots seeded by (layer, chunk), so one
+    device's caches and a rank's blocks (``shard``, or None) hold the same
+    values."""
+    ch = DIST_SERVE_CHUNK
+    for i, (kind, window) in enumerate(zip(cfg.layer_kinds, cfg.layer_windows)):
+        if kind not in ("attn", "moe"):
+            continue
+        c = caches[i]
+        dev, n_local = c["pos"].device, c["pos"].shape[0]
+        total = min(window, length) if window else length
+        start = shard.cache.index * n_local if shard is not None else 0
+        stop = min(start + n_local, total)
+        if stop <= start:
+            continue
+        slots = torch.arange(start, stop, device=dev)
+        pos = slots + total * torch.div(n_filled - 1 - slots, total, rounding_mode="floor")
+        c["pos"][:stop - start] = torch.where(pos >= 0, pos, -1).to(torch.int32)
+        b = c["k"].shape[0]
+        for chunk in range(start // ch, (stop - 1) // ch + 1):
+            g = torch.Generator(dev).manual_seed(1_000_003 * i + chunk)
+            kv = torch.randn((2, b, ch) + tuple(c["k"].shape[2:]), generator=g, device=dev)
+            lo, hi = max(start, chunk * ch), min(stop, (chunk + 1) * ch)
+            for j, name in enumerate(("k", "v")):
+                c[name][:, lo - start:hi - start] = kv[j][:, lo - chunk * ch:hi - chunk * ch].to(
+                    c[name].dtype)
+
+
+def serve_long_ref(model, cfg, steps: int, length: int) -> dict:
+    """One device's ``long`` reference: B = 1, bf16 caches of ``length``
+    filled as decoded to ``length - steps`` (``fill_long``), then ``steps``
+    greedy steps from a seeded token."""
+    caches = model.init_caches(1, length, torch.bfloat16)
+    fill_long(caches, cfg, None, length - steps, length)
+    step = make_serve_step(cfg)
+    tok = torch.from_numpy(np.random.default_rng(23).integers(0, cfg.vocab_size, (1, 1))
+                           .astype(np.int32)).to(model.device)
+    fed, logits, nexts = [], [], []
+    for t in range(steps):
+        fed.append(tok)
+        r = step(model, caches, tok, length - steps + t)
+        logits.append(r["logits"][:, 0].cpu())
+        nexts.append(r["next_tokens"][:, 0].cpu())
+        tok = r["next_tokens"]
+    fed, logits = torch.cat(fed, dim=1), torch.stack(logits)
+    fill_long(caches, cfg, None, length - steps, length)  # the decoded slots emptied again
+    noise = order_noise(model, lambda: replay(model, cfg, fed, 0, length - steps, caches))
+    del caches
+    return {"fed": fed.cpu(), "first": 0, "pos0": length - steps, "logits": logits,
+            "tokens": torch.stack(nexts), "drops": [], "dtype": cfg.dtype,
+            "cache_dtype": torch.bfloat16, "noise": float((noise - logits).abs().max()),
+            "handover": None}
+
+
+def serve_rag_engine(ref_dir: str):
+    """The dist_serve generate's engine: DIST_SERVE_RAG["n"] seeded vectors
+    built on the card (R = 32, L_build = 32: its recall is not under
+    test), saved and loaded back; with its requests' queries and labels."""
+    n = DIST_SERVE_RAG["n"]
+    x = make_bigann_like(n, DIM, seed=31)
+    labels = uniform_labels(n, N_LABELS, seed=31)
+    path = os.path.join(ref_dir, "rag.gann")
+    if not os.path.exists(path):
+        GateANNEngine.build(x, config=EngineConfig(degree=32, build_l=32, alpha=ALPHA,
+                                                   pq_chunks=PQ_CHUNKS, r_max=R_MAX),
+                            labels=labels).save(path)
+    q = make_queries(x, DIST_SERVE_RAG["requests"], seed=32)
+    targets = np.random.default_rng(33).integers(0, N_LABELS, len(q)).astype(np.int32)
+    return GateANNEngine.load(path), q, targets
+
+
+def serve_rag_server(eng, cfg, model, q, targets, layout=None):
+    """The generate's server and requests (gate, K = DIST_SERVE_RAG["k"],
+    a label filter each, seeded passages and prompts)."""
+    rag = DIST_SERVE_RAG
+    n = int(eng.codes.shape[0])
+    passages = np.random.default_rng(34).integers(0, cfg.vocab_size, (n, rag["passage"])).astype(np.int32)
+    search = SearchConfig(mode="gate", search_l=SEARCH["search_l"], beam_width=SEARCH["beam_width"],
+                          result_k=rag["k"])
+    kw = {} if layout is None else {"layout": layout}
+    srv = RAGServer(eng, cfg, model, passages, search, **kw)
+    rng = np.random.default_rng(35)
+    reqs = [RAGRequest(query_vec=q[i], prompt_tokens=rng.integers(0, cfg.vocab_size, rag["prompt"])
+                       .astype(np.int32), filter_kind="label", filter_params=targets[i])
+            for i in range(len(q))]
+    return srv, reqs
+
+
+def serve_generate_ref(model, cfg, ref_dir: str) -> dict:
+    """One device's ``generate`` over the phase's engine: its tokens, and
+    for each greedy step and row whether one device's top-2 gap is within
+    the bar (``serve_bar``: the order noise from a replay of the same
+    sequence under ``order_noise``)."""
+    new = DIST_SERVE_RAG["new"]
+    eng, q, targets = serve_rag_engine(ref_dir)
+    srv, reqs = serve_rag_server(eng, cfg, model, q, targets)
+    seen, decode = [], model.forward_decode
+
+    def recorded(tokens, caches, pos):
+        logits, caches = decode(tokens, caches, pos)
+        seen.append(logits[:, 0].cpu())
+        return logits, caches
+
+    model.forward_decode = recorded
+    try:
+        toks, _ = srv.generate(reqs, max_new_tokens=new)
+    finally:
+        del model.forward_decode
+    ids, _ = srv.retrieve(reqs)
+    prompts = torch.from_numpy(srv.build_prompts(reqs, ids))
+    p_len = prompts.shape[1]
+    logits = torch.stack(seen[p_len - 1:])  # the greedy steps (new, B, V)
+    fed = torch.cat([prompts, torch.from_numpy(toks[:, :-1])], dim=1).to(model.device)
+    noisy = order_noise(model, lambda: replay(model, cfg, fed, p_len - 1, 0, model.init_caches(
+        fed.shape[0], p_len + new, torch.float32)))
+    scale = float(logits.abs().max())
+    bar = serve_bar(scale, float((noisy - logits).abs().max()), cfg.dtype)
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return {"tokens": torch.from_numpy(toks), "close": ((top2[..., 0] - top2[..., 1]) <= bar).T,
+            "bar": bar, "scale": scale}
+
+
+def dist_serve_refs_gemma(model, cfg, ref_dir: str, card: str) -> dict:
+    """The lm phase's part of the dist_serve phase: one device's gemma3-4b
+    decode, long and prefill references and ``generate`` over the phase's
+    engine, saved under ``ref_dir`` for the ranks."""
+    parts, t0 = {}, time.perf_counter()
+
+    def part(name, fn):
+        t = time.perf_counter()
+        fn()
+        parts[name] = time.perf_counter() - t
+
+    b, prompt, new, length = DIST_SERVE_DECODE
+    part("decode", lambda: torch.save(serve_decode_ref(
+        model, cfg, b, prompt, new, length, seed=21,
+        handover=os.path.join(ref_dir, "gemma3-4b_caches.pt")),
+        os.path.join(ref_dir, "gemma3-4b_decode.pt")))
+    # the float32 twin: the same weights with float32 activations and caches
+    model.cfg = f32 = dataclasses.replace(cfg, dtype="float32")
+    try:
+        fb, fp, fn = DIST_SERVE_F32
+        part("decode_float32", lambda: torch.save(serve_decode_ref(
+            model, f32, fb, fp, fn, length, seed=25, cache_dtype=torch.float32),
+            os.path.join(ref_dir, "gemma3-4b_decode_f32.pt")))
+    finally:
+        model.cfg = cfg
+    batch = batch_at_step(TokenStreamConfig(cfg.vocab_size, LM_PREFILL[1], LM_PREFILL[0], seed=0), 0)
+    part("prefill", lambda: torch.save(serve_prefill_ref(model, cfg, batch),
+                                       os.path.join(ref_dir, "gemma3-4b_prefill.pt")))
+    # generate in float32 (its caches are float32 anyway), where its tokens
+    # are not parted by bf16 order noise (PERF.md)
+    model.cfg = f32
+    try:
+        part("generate", lambda: torch.save(serve_generate_ref(model, f32, ref_dir),
+                                            os.path.join(ref_dir, "rag.pt")))
+    finally:
+        model.cfg = cfg
+    torch.cuda.empty_cache()
+    steps, length = DIST_SERVE_LONG
+    part("long", lambda: torch.save(serve_long_ref(model, cfg, steps, length),
+                                    os.path.join(ref_dir, "gemma3-4b_long.pt")))
+    torch.cuda.empty_cache()
+    s = time.perf_counter() - t0
+    log("lm", f"dist_serve references of {cfg.name} on one device (decode B={b} {prompt}+{new}, "
+        f"prefill B={LM_PREFILL[0]} T={LM_PREFILL[1]}, generate over N={DIST_SERVE_RAG['n']:,}, long "
+        f"{steps} steps over {length:,} slots; each with its order-noise replay, the files written "
+        f"to the run's temporary directory) in {s:.1f} s "
+        f"({json.dumps({k: round(v, 1) for k, v in parts.items()})}) on {card}")
+    return {"dist_serve_refs_s": s, "dist_serve_refs_parts_s": parts}
+
+
+def serve_prefill_ref(model, cfg, batch: dict) -> dict:
+    """One device's prefill of ``batch``: its logits and K/V on the host,
+    and the largest distances of the same prefill under ``order_noise``."""
+    prefill = make_prefill_step(cfg)
+    res = prefill(model, batch)
+    out = {"tokens": torch.from_numpy(batch["tokens"]), "logits": res["logits"].cpu(),
+           "kv": [(k.cpu(), v.cpu()) for k, v in res["caches"]], "dtype": cfg.dtype}
+    del res
+    noisy = order_noise(model, lambda: prefill(model, batch))
+    out["noise"] = float((noisy["logits"].cpu() - out["logits"]).abs().max())
+    out["kv_noise"] = max([0.0] + [float((a.cpu().float() - b.float()).abs().max())
+                                   for kv, ref in zip(noisy["caches"], out["kv"])
+                                   for a, b in zip(kv, ref)])
+    return out
+
+
+def serve_kind_cfg(arch: str):
+    """A kind's config in the dist_serve phase: its depth cut and its
+    activation dtype by DIST_SERVE_KINDS."""
+    depth, dtype = DIST_SERVE_KINDS[arch]
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers, dtype=dtype or cfg.dtype)
+
+
+def dist_serve_refs_kind(model, cfg, ref_dir: str, card: str) -> dict:
+    """The lm_kinds phase's part of the dist_serve phase for one config:
+    one device's decode (and for xlstm-350m prefill) references, in the
+    activation dtype DIST_SERVE_KINDS gives (the same weights)."""
+    t0 = time.perf_counter()
+    b, prompt, new = DIST_SERVE_KINDS_DECODE
+    name, own = cfg.name, model.cfg
+    model.cfg = cfg = serve_kind_cfg(name)
+    try:
+        torch.save(serve_decode_ref(model, cfg, b, prompt, new, prompt + new, seed=22,
+                                    cache_dtype=model.dtype),
+                   os.path.join(ref_dir, f"{name}_decode.pt"))
+    finally:
+        model.cfg = own
+    if name == "xlstm-350m":
+        pb, pt = DIST_SERVE_XLSTM_PREFILL
+        batch = batch_at_step(TokenStreamConfig(own.vocab_size, pt, pb, seed=24), 0)
+        torch.save(serve_prefill_ref(model, own, batch), os.path.join(ref_dir, f"{name}_prefill.pt"))
+    s = time.perf_counter() - t0
+    log("lm_kinds", f"dist_serve references of {name} on one device in {s:.1f} s on {card}")
+    return {"dist_serve_refs_s": s}
+
+
+@contextlib.contextmanager
+def metered_collectives():
+    """While the block runs, ``torch.distributed``'s ``all_reduce``,
+    ``all_gather`` and ``reduce_scatter`` add each call's host-clock
+    seconds (the card drained before and after) and its payload's bytes
+    (all_reduce its tensor; all_gather its outputs; reduce_scatter its
+    inputs) by kind to the yielded dict."""
+    meter = {"s": 0.0, "calls": {}, "bytes": {}}
+    saved = {}
+
+    def payload(name, args):
+        ts = args[0] if name == "all_reduce" else (args[0] if name == "all_gather" else args[1])
+        ts = [ts] if isinstance(ts, torch.Tensor) else ts
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    for name in ("all_reduce", "all_gather", "reduce_scatter"):
+        real = saved[name] = getattr(torch.distributed, name)
+
+        def metered(*args, _real=real, _name=name, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _real(*args, **kwargs)
+            torch.cuda.synchronize()
+            meter["s"] += time.perf_counter() - t0
+            meter["calls"][_name] = meter["calls"].get(_name, 0) + 1
+            meter["bytes"][_name] = meter["bytes"].get(_name, 0) + payload(_name, args)
+            return out
+
+        setattr(torch.distributed, name, metered)
+    try:
+        yield meter
+    finally:
+        for name, real in saved.items():
+            setattr(torch.distributed, name, real)
+
+
+def tree_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def serve_bar(scale: float, noise: float, dtype: str) -> float:
+    """The bar a rank's output is held to: the LM tests' bar for the dtype
+    (of the largest magnitude), or twice one device's own distance under
+    a change of summation order (``order_noise``), the larger: at full
+    depth in bf16 the latter passes the former (PERF.md, PR 23)."""
+    return max(DIST_SERVE_BAR[dtype] * scale, 2.0 * noise)
+
+
+def logits_held(got: torch.Tensor, ref: dict, rows: slice, what: str) -> dict:
+    """The rank's greedy steps' logits (steps, rows, V) against one
+    device's, within ``serve_bar``; its argmax equal to one device's token
+    at every step whose one-device top-2 gap exceeds the bar (the others
+    counted)."""
+    want = ref["logits"][:, rows].to(got.device)
+    scale = float(want.abs().max())
+    bar = serve_bar(scale, ref["noise"], ref["dtype"])
+    err = float((got - want).abs().max())
+    require(err <= bar, f"{what}: logits max |err| {err} at scale {scale}, bar {bar}")
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > bar
+    agree = torch.argmax(got, dim=-1).cpu() == ref["tokens"][:, rows]
+    require(bool(agree[clear.cpu()].all()), f"{what}: a greedy token differs at a step whose "
+            "one-device top-2 gap exceeds the bar")
+    return {"max_abs_err": err, "scale": scale, "bar": bar, "noise": ref["noise"],
+            "token_steps": int(agree.numel()), "tokens_equal": int(agree.sum()),
+            "close_steps": int((~clear).sum()),
+            "close_and_differ": int((~agree & ~clear.cpu()).sum())}
+
+
+def serve_replay(mesh, kind: str, cfg, ref: dict, length: int, model=None, fill=None) -> dict:
+    """One rank's decode under ``kind``: the tokens one device was fed,
+    replayed on this rank's rows into caches of ``length`` (filled by
+    ``fill(caches, shard)`` first when given), each step timed on the host
+    clock after a sync; its greedy steps' logits and tokens held to one
+    device's (``logits_held``); the MoE's dropped pairs each step; then
+    the last step again with its collectives metered.  Returns the
+    readings and the model (for the next run on the same layout)."""
+    dev = mesh.device
+    layout = make_layout(kind, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if model is None:
+        model = zoo.init_params(cfg, torch.Generator(dev).manual_seed(0), layout=layout)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    fed = ref["fed"]
+    b = fed.shape[0]
+    rows = model.shard.batch.block(b)
+    if ref["handover"]:  # this rank's blocks of one device's caches after the prompt
+        caches = [{k: v.to(dev) for k, v in c.items()} for c in cache_blocks(
+            cfg, torch.load(ref["handover"], mmap=True), layout)]
+    else:
+        caches = model.init_caches(b, length, ref["cache_dtype"])
+    if fill is not None:
+        fill(caches, model.shard)
+    step = make_serve_step(cfg, layout=layout)
+    fed = fed[rows].to(dev)
+    lat, logits = [], []
+    with routings(model) as seen:
+        for t in range(fed.shape[1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = step(model, caches, fed[:, t:t + 1], ref["pos0"] + t)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            if t >= ref["first"]:
+                logits.append(r["logits"][:, 0])
+    drops = kept_pairs(seen)
+    out = logits_held(torch.stack(logits), ref, rows, f"dist_serve {cfg.name} {kind} {mesh.shape}")
+    if ref["drops"]:
+        require(len(drops) == len(ref["drops"]) and all(
+            torch.equal(a, b) for a, b in zip(drops, ref["drops"])),
+            f"dist_serve {cfg.name}: the routed and dropped pairs differ from one device's")
+        out["drops"] = {"routings": len(drops), "pairs": sum(d.numel() for d in drops),
+                        "dropped": sum(int((d < 0).sum()) for d in drops)}
+    t = fed.shape[1] - 1
+    with metered_collectives() as meter:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, caches, fed[:, t:t + 1], ref["pos0"] + t)
+        torch.cuda.synchronize()
+        inst = time.perf_counter() - t0
+    out.update(init_s=init_s, steps=len(lat), ms_step=float(np.median(lat[1:])) * 1e3,
+               ms_first=lat[0] * 1e3, instrumented_ms=inst * 1e3,
+               collective_share=meter["s"] / inst, collective_calls=meter["calls"],
+               collective_bytes=meter["bytes"],
+               param_bytes=tree_bytes(model.parameters()),
+               cache_bytes=tree_bytes(v for c in caches for v in c.values()),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    del caches
+    return out, model
+
+
+def serve_prefill(mesh, cfg, ref: dict) -> dict:
+    """One rank's prefill under the (2, 2) ``prefill`` layout: ZeRO-stored
+    parameters drawn a leaf at a time, one step on the whole batch of
+    ``ref`` (timed once, after a sync), its rows' logits held to one
+    device's, its (rows, sequence) K/V blocks likewise."""
+    dev = mesh.device
+    layout = make_layout("prefill", mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = zoo.init_params(cfg, torch.Generator(dev).manual_seed(0), layout=layout)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    stored = tree_bytes(params.blocks.values())
+    step = make_prefill_step(cfg, layout=layout)
+    tokens = ref["tokens"].numpy()
+    with metered_collectives() as meter:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    b, t = tokens.shape
+    rows, seq = params.shard.batch.block(b), params.shard.seq.block(t)
+    want = ref["logits"][rows].to(dev)
+    scale = float(want.abs().max())
+    err = float((res["logits"] - want).abs().max())
+    bar = serve_bar(scale, ref["noise"], ref["dtype"])
+    require(err <= bar, f"dist_serve {cfg.name} prefill: logits max |err| {err}, bar {bar}")
+    kv_err, kv_scale = 0.0, 0.0
+    require(len(res["caches"]) == len(ref["kv"]), f"dist_serve {cfg.name} prefill: caches")
+    for (k, v), (wk, wv) in zip(res["caches"], ref["kv"]):
+        for g, w in ((k, wk), (v, wv)):
+            w = w[rows, seq].to(dev).float()
+            kv_err = max(kv_err, float((g.float() - w).abs().max()))
+            kv_scale = max(kv_scale, float(w.abs().max()))
+    kv_bar = serve_bar(max(kv_scale, 1.0), ref["kv_noise"], ref["dtype"])
+    require(kv_err <= kv_bar, f"dist_serve {cfg.name} prefill: K/V blocks max |err| {kv_err} at "
+            f"scale {kv_scale}, bar {kv_bar}")
+    return {"init_s": init_s, "s": secs, "B": b, "T": t, "logits_max_abs_err": err,
+            "logits_scale": scale, "logits_bar": bar, "noise": ref["noise"],
+            "kv_max_abs_err": kv_err, "kv_scale": kv_scale, "kv_bar": kv_bar,
+            "kv_noise": ref["kv_noise"],
+            "gathered_bytes": params.gathered_bytes, "stored_bytes": stored,
+            "collective_share": meter["s"] / secs, "collective_calls": meter["calls"],
+            "collective_bytes": meter["bytes"], "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def serve_generate(mesh, cfg, model, ref_dir: str) -> dict:
+    """``RAGServer(..., layout=decode)`` on this rank: its own engine loaded
+    from the phase's index file, the tokens equal to one device's
+    ``generate``; its kernel launches counted from 0."""
+    eng, q, targets = serve_rag_engine(ref_dir)
+    srv, reqs = serve_rag_server(eng, cfg, model, q, targets, make_layout("decode", mesh))
+    ref = torch.load(os.path.join(ref_dir, "rag.pt"))
+    want = ref["tokens"].numpy()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    PLAIN_MERGES[0] = 0
+    t0 = time.perf_counter()
+    toks, _ = srv.generate(reqs, max_new_tokens=DIST_SERVE_RAG["new"])
+    secs = time.perf_counter() - t0
+    launches = {**_build.LAUNCHES, "plain_merges": PLAIN_MERGES[0]}
+    # each row's tokens equal one device's up to its first step whose
+    # one-device top-2 gap is within the bar (after it the rows may part)
+    held = 0
+    for r, close in enumerate(ref["close"].numpy()):
+        upto = int(np.argmax(close)) if close.any() else len(close)
+        require(np.array_equal(toks[r, :upto], want[r, :upto]),
+                f"dist_serve generate: row {r} {toks[r].tolist()} vs one device's "
+                f"{want[r].tolist()} before its first close step {upto}")
+        held += upto
+    return {"s": secs, "launches": launches, "requests": len(reqs), "tokens_held": held,
+            "tokens_equal": int((toks == want).sum()), "tokens": int(want.size),
+            "bar": ref["bar"], "scale": ref["scale"],
+            "prompt_len": DIST_SERVE_RAG["k"] * DIST_SERVE_RAG["passage"] + DIST_SERVE_RAG["prompt"],
+            "new": DIST_SERVE_RAG["new"]}
+
+
+def dist_serve_rank(mesh, ref_dir: str) -> dict:
+    """One rank of the dist_serve phase: (1, 4) gemma3-4b decode and
+    ``generate``, the kinds' decode; then (2, 2) gemma3-4b long and prefill
+    and xlstm-350m prefill.  Every check is made here, against one
+    device's files under ``ref_dir``; the readings come back."""
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    watch_plain_merges()
+    load = lambda name, **kw: torch.load(os.path.join(ref_dir, name), **kw)  # noqa: E731
+    out = {"rank": mesh.rank}
+    t_rank = time.perf_counter()
+
+    def done(name):
+        if mesh.rank == 0:
+            r = out[name]
+            log("dist_serve", f"rank 0: {name} at {time.perf_counter() - t_rank:.1f} s: "
+                + ", ".join(f"{k} {r[k]:.4g}" for k in ("ms_step", "s", "max_abs_err", "bar",
+                                                          "logits_max_abs_err", "logits_bar")
+                            if k in r))
+    gemma = get_config(LM_ARCH)
+    b, prompt, new, length = DIST_SERVE_DECODE
+    out["gemma3-4b decode"], model = serve_replay(mesh, "decode", gemma,
+                                                  load("gemma3-4b_decode.pt"), length)
+    done("gemma3-4b decode")
+    # the float32 twin on the same blocks: float32 activations and caches
+    model.cfg = f32 = dataclasses.replace(gemma, dtype="float32")
+    out["gemma3-4b decode float32"], _ = serve_replay(mesh, "decode", f32,
+                                                      load("gemma3-4b_decode_f32.pt"), length, model)
+    done("gemma3-4b decode float32")
+    out["generate"] = serve_generate(mesh, f32, model, ref_dir)
+    done("generate")
+    model.cfg = gemma
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in DIST_SERVE_KINDS:
+        cfg = serve_kind_cfg(arch)
+        out[f"{arch} decode"], model = serve_replay(mesh, "decode", cfg, load(f"{arch}_decode.pt"),
+                                                    sum(DIST_SERVE_KINDS_DECODE[1:]))
+        done(f"{arch} decode")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    mesh22 = mesh.reshape((2, 2))
+    steps, length = DIST_SERVE_LONG
+    out["gemma3-4b long"], model = serve_replay(
+        mesh22, "long", gemma, load("gemma3-4b_long.pt"), length,
+        fill=lambda caches, shard: fill_long(caches, gemma, shard, length - steps, length))
+    done("gemma3-4b long")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gemma3-4b prefill"] = serve_prefill(mesh22, gemma, load("gemma3-4b_prefill.pt", mmap=True))
+    done("gemma3-4b prefill")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["xlstm-350m prefill"] = serve_prefill(mesh22, get_config("xlstm-350m"),
+                                              load("xlstm-350m_prefill.pt"))
+    done("xlstm-350m prefill")
+    return out
+
+
+def dist_serve_phase(ref_dir: str, card: str, cap: Capture) -> dict:
+    """The serving layouts executed on a mesh of 4 gloo ranks sharing the
+    card (the module docstring's dist_serve), against one device's runs
+    saved by the lm and lm_kinds phases under ``ref_dir``."""
+    t_phase = time.perf_counter()
+    b, prompt, new, length = DIST_SERVE_DECODE
+    rag = DIST_SERVE_RAG
+    log("dist_serve", f"CUT: gemma3-4b decode's {prompt}-token prompt is teacher-forced on one "
+        f"device and each rank starts from its blocks of those caches (cache_blocks); the {new} "
+        "greedy steps run sharded (each step costs about 200 collectives, 6-8 ms each with 4 "
+        "processes sharing the card: PERF.md)")
+    log("dist_serve", f"CUT: generate's prompts are {rag['k']} hits of {rag['passage']}-token "
+        f"passages and {rag['prompt']} tokens (4 hits of 16 and 8 asked for), {rag['new']} new "
+        "tokens: it teacher-forces the prompt through the sharded decode")
+    ranks = spawn_local(dist_serve_rank, (1, 4), backend="gloo", device="cuda:0",
+                        timeout_s=DIST_SERVE_TIMEOUT_S, args=(ref_dir,))
+    wall = time.perf_counter() - t_phase
+    cap.launches["dist_serve_generate"] = {}
+    for r in ranks:
+        for k, v in r["generate"]["launches"].items():
+            cap.launches["dist_serve_generate"][k] = cap.launches["dist_serve_generate"].get(k, 0) + v
+    require_launches(cap, "dist_serve_generate", ("pq_lookup", "rerank"),
+                     ("fused_traversal", "l2_dist", "plain_merges"))
+    runs = {}
+    for name in [k for k in ranks[0] if k not in ("rank", "generate")]:
+        rows = [r[name] for r in ranks]
+        runs[name] = {"ranks": rows}
+        r0 = rows[0]
+        mesh = "(2, 2)" if ("long" in name or "prefill" in name) else "(1, 4)"
+        if "prefill" in name:
+            log("dist_serve", f"{name} on {mesh} (B={r0['B']} T={r0['T']}, ZeRO-stored parameters "
+                f"gathered a layer at a time): {max(r['s'] for r in rows):.2f} s a step (one call, "
+                f"the slowest rank); logits within {max(r['logits_max_abs_err'] for r in rows):.3g} "
+                f"of one device's (scale {r0['logits_scale']:.3g}; one device's own distance under "
+                f"another summation order {r0['noise']:.3g}; bar {r0['logits_bar']:.3g}), K/V "
+                f"blocks within {max(r['kv_max_abs_err'] for r in rows):.3g} (scale "
+                f"{r0['kv_scale']:.3g}, order noise {r0['kv_noise']:.3g}, bar {r0['kv_bar']:.3g}); "
+                f"a rank stores "
+                f"{r0['stored_bytes'] / 1e9:.2f} GB and gathers {r0['gathered_bytes'] / 1e9:.2f} GB; "
+                f"collectives {max(r['collective_share'] for r in rows):.1%} of the step "
+                f"({json.dumps(r0['collective_calls'])} calls, bytes {json.dumps(r0['collective_bytes'])}"
+                f"); peak {max(r['peak_bytes'] for r in rows) / 2**30:.2f} GiB a rank; drawn in "
+                f"{max(r['init_s'] for r in rows):.1f} s on {card}")
+            continue
+        log("dist_serve", f"{name} on {mesh}: {max(r['ms_step'] for r in rows):.1f} ms a step "
+            f"(median of {r0['steps'] - 1}, the slowest rank; first {r0['ms_first']:.0f} ms); "
+            f"greedy logits within {max(r['max_abs_err'] for r in rows):.3g} of one device's "
+            f"(scale {r0['scale']:.3g}; one device's own distance under another summation "
+            f"order {r0['noise']:.3g}; bar {r0['bar']:.3g}), tokens equal at "
+            f"{min(r['tokens_equal'] for r in rows)} of {r0['token_steps']} row-steps "
+            f"({max(r['close_and_differ'] for r in rows)} differ, all at steps whose one-device "
+            f"top-2 gap is under the bar: {max(r['close_steps'] for r in rows)} such); "
+            f"collectives {max(r['collective_share'] for r in rows):.1%} of an instrumented step "
+            f"({r0['instrumented_ms']:.1f} ms; calls {json.dumps(r0['collective_calls'])}, bytes "
+            f"{json.dumps(r0['collective_bytes'])}); a rank holds {r0['param_bytes'] / 1e9:.2f} GB "
+            f"of parameters and {r0['cache_bytes'] / 1e9:.3f} GB of caches, peak "
+            f"{max(r['peak_bytes'] for r in rows) / 2**30:.2f} GiB; drawn in "
+            f"{max(r['init_s'] for r in rows):.1f} s"
+            + (f"; MoE drops {json.dumps(r0['drops'])} == one device's" if "drops" in r0 else "")
+            + f" on {card}")
+    g = ranks[0]["generate"]
+    runs["generate"] = {"ranks": [r["generate"] for r in ranks], "launches": cap.launches["dist_serve_generate"]}
+    log("dist_serve", f"RAGServer(..., layout=decode) on (1, 4), float32 activations, "
+        f"{g['requests']} requests over "
+        f"N={DIST_SERVE_RAG['n']:,} (each rank its own engine loaded from one file; prompts of "
+        f"{g['prompt_len']} tokens, {g['new']} new): {g['tokens_equal']} of {g['tokens']} "
+        f"tokens equal one device's generate, every one of the {g['tokens_held']} before a row's "
+        f"first step whose one-device top-2 gap is within the bar ({g['bar']:.3g} at logits of "
+        f"{g['scale']:.3g}); "
+        f"{max(r['generate']['s'] for r in ranks):.1f} s; launches "
+        f"{json.dumps(cap.launches['dist_serve_generate'])} on {card}")
+    out = {"runs": runs, "spawn_to_join_s": wall, "phase_s": time.perf_counter() - t_phase}
+    log("dist_serve", f"phase {out['phase_s']:.1f} s (one spawn of 4 ranks: (1, 4), then (2, 2)) "
+        f"on {card}")
+    print(json.dumps({"dist_serve": out, "card": card}), flush=True)
+    return out
+
+
+def dist_serve_references(ref_dir: str, card: str) -> None:
+    """The dist_serve phase's one-device references without the lm and
+    lm_kinds phases (the phase run alone): each model drawn, its
+    references saved, freed."""
+    dev = torch.device("cuda")
+    model = zoo.init_params(get_config(LM_ARCH), torch.Generator("cuda").manual_seed(0), device=dev)
+    dist_serve_refs_gemma(model, get_config(LM_ARCH), ref_dir, card)
+    del model
+    torch.cuda.empty_cache()
+    for arch, (depth, _) in DIST_SERVE_KINDS.items():
+        cfg = get_config(arch)
+        if depth:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        model = zoo.init_params(cfg, torch.Generator("cuda").manual_seed(0), device=dev)
+        dist_serve_refs_kind(model, cfg, ref_dir, card)
+        del model
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 6
 def scan_topk(lut, codes, labels, targets, k: int = 10):
     """Brute-force filtered PQ search: every code scored, non-matching
@@ -3325,6 +4081,8 @@ def kernel_line(cap: Capture) -> list[dict]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="index size (SIFT1M: 1,000,000)")
+    ap.add_argument("--only", choices=("dist_serve",),
+                    help="run one phase alone, its one-device references included (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3351,6 +4109,14 @@ def main(argv=None) -> int:
     _build.build_all()
     log("kernels", f"built {', '.join(_build.SOURCES)} for sm_90a in {time.perf_counter() - t0:.1f} s")
     watch_plain_merges()
+    if args.only == "dist_serve":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=index_dir()) as tmp:
+            t0 = time.perf_counter()
+            dist_serve_references(tmp, card)
+            log("dist_serve", f"one device's references in {time.perf_counter() - t0:.1f} s")
+            dist_serve_phase(tmp, card, Capture())
+        log("done", f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
     rng = np.random.default_rng(0)
     check_adc(dev, args.n, rng)
     check_l2(dev, rng)
@@ -3392,11 +4158,14 @@ def main(argv=None) -> int:
         ssd_phase(path, q, targets, mem_runs, card, cap)
         cache_phase(eng, path, q, targets, mem_runs, card, cap)
         serve_phase(eng, path, q, targets, card, cap)
-        lm_phase(eng, q, targets, card, cap)
-        lm_kinds_phase(eng, q, targets, card, cap)
+        ref_dir = os.path.join(tmp, "dist_serve")
+        os.makedirs(ref_dir)
+        lm_phase(eng, q, targets, card, cap, ref_dir)
+        lm_kinds_phase(eng, q, targets, card, cap, ref_dir)
         lm_variants_phase(card)
         train_phase(tmp, card)
         dist_train_phase(tmp, card)
+        dist_serve_phase(ref_dir, card, cap)
         scan_phase(eng, q, targets, gt, card, cap)
         del eng, mem_runs
         torch.cuda.empty_cache()

@@ -26,11 +26,17 @@ constrains activations inside it.  In the port a spec is a plan that an
 executor reads: ``train.train_step`` stores each leaf's shard and
 gathers, reduces and slices by the specs, and places the activations
 itself (the batch over ``act_batch``, the loss positions over
-``act_seq``).  So ``lshard`` is the identity here.  ``NamedSharding``
+``act_seq``), and the serving steps (``serve.prefill`` /
+``serve.decode``) run the ``prefill``, ``decode`` and ``long`` layouts
+with collectives written out by hand at the points the models name
+(``Shard``).  So ``lshard`` is the identity here.  ``NamedSharding``
 holds a spec on a mesh and slices a full tensor to a rank's block, or
-gathers the blocks back.  A spec's meaning needs only the mesh's
-``axis_names`` and ``shape``: a live ``launch.mesh.Mesh`` and an
-``AbstractMesh`` (which joins no world) plan alike.
+gathers the blocks back.  A dimension that does not divide by its axes
+is split as XLA splits it: blocks of the ceiling size, the last ones
+short (or empty), ``shard_shape`` the padded block.  A spec's meaning
+needs only the mesh's ``axis_names`` and ``shape``: a live
+``launch.mesh.Mesh`` and an ``AbstractMesh`` (which joins no world)
+plan alike.
 """
 from __future__ import annotations
 
@@ -272,25 +278,24 @@ class NamedSharding:
                      for n, axes in zip(shard_shape, self._entries(len(shard_shape))))
 
     def shard_shape(self, shape) -> tuple:
+        """A block's shape: each dimension over its axes' product, rounded
+        up (XLA's padded block where the dimension does not divide)."""
         sizes = _axis_sizes(self.mesh)
-        out = []
-        for n, axes in zip(shape, self._entries(len(shape))):
-            k = math.prod(sizes[a] for a in axes)
-            if n % k:
-                raise ValueError(f"{self.spec}: dimension {n} of {tuple(shape)} is not split "
-                                 f"{k} ways evenly")
-            out.append(n // k)
-        return tuple(out)
+        return tuple(-(-n // math.prod(sizes[a] for a in axes))
+                     for n, axes in zip(shape, self._entries(len(shape))))
 
     def block(self, shape, rank: int) -> tuple:
-        """``rank``'s block of a full tensor of ``shape``, as slices."""
+        """``rank``'s block of a full tensor of ``shape``, as slices: the
+        ``shard_shape`` block at the rank's index, cut at the tensor's
+        end (so the last blocks of an uneven dimension are short or
+        empty)."""
         sizes, coords = _axis_sizes(self.mesh), rank_coords(self.mesh, rank)
         out = []
         for n, m, axes in zip(shape, self.shard_shape(shape), self._entries(len(shape))):
             idx = 0
             for a in axes:
                 idx = idx * sizes[a] + coords[a]
-            out.append(slice(idx * m, (idx + 1) * m))
+            out.append(slice(min(idx * m, n), min((idx + 1) * m, n)))
         return tuple(out)
 
     def owns(self, rank: int) -> bool:
@@ -312,11 +317,14 @@ class NamedSharding:
         world = math.prod(self.mesh.shape)
         if world == 1 or self.replicated():
             return local.clone()
-        parts = [torch.empty_like(local) for _ in range(world)]
-        dist.all_gather(parts, local.contiguous())
+        padded = local.new_zeros(self.shard_shape(shape))  # a short block, padded
+        padded[tuple(slice(0, n) for n in local.shape)] = local
+        parts = [torch.empty_like(padded) for _ in range(world)]
+        dist.all_gather(parts, padded)
         full = local.new_empty(shape)
         for r, part in enumerate(parts):
-            full[self.block(shape, r)] = part
+            blk = self.block(shape, r)
+            full[blk] = part[tuple(slice(0, b.stop - b.start) for b in blk)]
         return full
 
 
@@ -339,3 +347,115 @@ def map_specs(fn, specs, *trees):
 def named_shardings(mesh, specs):
     """A tree of ``NamedSharding`` on ``mesh`` from a tree of specs."""
     return map_specs(lambda spec: NamedSharding(mesh, spec), specs)
+
+
+# ------------------------------------------------ executing a serving layout
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """Mesh axes as an executor runs collectives over them: the process
+    group of this rank's line along them (the first axis the major one),
+    this rank's index on that line and its length.  On a line of one
+    rank every collective is the identity."""
+
+    group: Any
+    index: int
+    size: int
+
+    def block(self, n: int) -> slice:
+        """This rank's block of a dimension of ``n`` split over the line:
+        ceiling-sized blocks, the last ones cut at ``n`` (XLA's split)."""
+        m = -(-n // self.size)
+        return slice(min(self.index * m, n), min((self.index + 1) * m, n))
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``x`` summed (``"sum"``) or maximised (``"max"``) over the line,
+        in place on a contiguous ``x``; returns it."""
+        if self.size == 1:
+            return x
+        x = x.contiguous()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=self.group)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` (equal shapes) joined along ``dim`` in line order."""
+        if self.size == 1:
+            return x
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(self.size)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` summed over the line, and this rank's block of ``dim`` of
+        the sum (``dim`` divides by the line)."""
+        if self.size == 1:
+            return x
+        if x.shape[dim] % self.size:
+            raise ValueError(f"reduce_scatter: dimension {x.shape[dim]} over {self.size} ranks")
+        parts = [c.contiguous() for c in x.chunk(self.size, dim=dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=self.group)
+        return out
+
+
+ONE = Axis(group=None, index=0, size=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """How a rank executes a serving layout on a live 2-D mesh (``data``,
+    ``model``): ``kind`` (``prefill``, ``decode`` or ``long``), ``model``
+    the mesh's ``model`` axis, ``batch`` the axes the rows split
+    over (``act_batch``), ``seq`` those the prefill's sequence splits
+    over (``act_seq``), ``cache`` those the KV cache's sequence splits
+    over (``cache_seq``: ``model`` in decode, the world in ``data``-major
+    order in ``long``), ``embed`` those d_model splits over (the
+    parameters' ``embed``), ``experts`` those the experts split over.
+    Axes a layout leaves unmapped are ``ONE``."""
+
+    kind: str
+    model: Axis
+    batch: Axis
+    seq: Axis
+    cache: Axis
+    embed: Axis
+    experts: Axis
+
+
+SERVING_KINDS = ("prefill", "decode", "long")
+
+
+def shard_of(layout: Layout, what: str) -> Shard:
+    """The ``Shard`` a serving layout on a live mesh executes.  Raises on
+    an ``AbstractMesh``, a layout kind other than ``prefill``, ``decode``
+    or ``long``, a mesh other than (``data``, ``model``) (the multi-pod
+    mesh is planned, not executed), or a mapping other than the
+    reference's rules give."""
+    mesh = layout.mesh
+    if not hasattr(mesh, "rank"):
+        raise ValueError(f"{what}: {type(mesh).__name__} joins no world: it plans, it cannot "
+                         "execute; pass a launch.mesh.Mesh")
+    if layout.kind not in SERVING_KINDS:
+        raise NotImplementedError(f"{what}: the {layout.kind!r} layout is not a serving layout; "
+                                  f"a serving step executes {SERVING_KINDS}")
+    if tuple(mesh.axis_names) != ("data", "model") or layout.multi_pod:
+        raise NotImplementedError(f"{what}: a serving layout executes on a (data, model) mesh; "
+                                  f"{tuple(mesh.axis_names)} (multi_pod={layout.multi_pod}) is "
+                                  "planned only (ROADMAP, Queue 1)")
+    world = Axis(dist.group.WORLD, mesh.rank, math.prod(mesh.shape))
+    axes = {("model",): Axis(mesh.group("model"), mesh.index("model"), mesh.size("model")),
+            ("data",): Axis(mesh.group("data"), mesh.index("data"), mesh.size("data")),
+            ("data", "model"): world, None: ONE}
+
+    def of(names, name):
+        if names not in axes:
+            raise NotImplementedError(f"{what}: {name} over {names} is not executed")
+        return axes[names]
+
+    act, par = layout.act_axes, layout.param_axes
+    return Shard(kind=layout.kind, model=axes[("model",)],
+                 batch=of(act("act_batch"), "act_batch"),
+                 seq=of(act("act_seq") if layout.kind == "prefill" else None, "act_seq"),
+                 cache=of(act("cache_seq") if layout.kind != "prefill" else None, "cache_seq"),
+                 embed=of(par("embed"), "embed"), experts=of(par("experts"), "experts"))

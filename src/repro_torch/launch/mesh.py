@@ -70,6 +70,17 @@ class Mesh:
         along ``axis``, ranked by their coordinate on it."""
         return self.groups[axis]
 
+    def reshape(self, shape) -> "Mesh":
+        """A mesh of another ``shape`` over the same world and axis names
+        (a 2-D world run as (1, 4) and then (2, 2), say): every rank of
+        the world must call it, with the same shape, in the same order,
+        since it creates every group of the new shape."""
+        shape = tuple(int(s) for s in shape)
+        if math.prod(shape) != math.prod(self.shape) or len(shape) != len(self.shape):
+            raise ValueError(f"mesh {self.shape} cannot be reshaped to {shape}")
+        coords, groups = _axis_groups(shape, self.axis_names, self.rank)
+        return Mesh(self.axis_names, shape, self.rank, coords, groups, self.device)
+
 
 @dataclasses.dataclass(frozen=True)
 class AbstractMesh:
@@ -116,7 +127,14 @@ def make_mesh(shape, axis_names, *, backend: str, store, rank: int, world_size: 
         raise ValueError("nccl moves CUDA tensors only: use a CUDA device or gloo")
     dist.init_process_group(backend, store=store, rank=rank, world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout_s))
-    ranks = np.arange(world_size).reshape(shape)
+    coords, groups = _axis_groups(shape, axis_names, rank)
+    return Mesh(axis_names, shape, rank, coords, groups, device)
+
+
+def _axis_groups(shape: tuple, axis_names: tuple, rank: int) -> tuple[tuple, dict]:
+    """(``rank``'s coordinates, its group along each axis): every group of
+    the shape created, in one order, by every rank of the world."""
+    ranks = np.arange(math.prod(shape)).reshape(shape)
     coords = tuple(int(c) for c in np.unravel_index(rank, shape))
     groups = {}
     for a, name in enumerate(axis_names):
@@ -124,7 +142,7 @@ def make_mesh(shape, axis_names, *, backend: str, store, rank: int, world_size: 
             g = dist.new_group(line)  # every rank, every group, one order
             if rank in line:
                 groups[name] = g
-    return Mesh(axis_names, shape, rank, coords, groups, device)
+    return coords, groups
 
 
 def make_production_mesh(*, multi_pod: bool = False, backend: str, store, rank: int,

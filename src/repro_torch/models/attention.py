@@ -28,6 +28,31 @@ asked for (no promotion to float32).
 GQA is computed with grouped einsums — K/V are never materialised per
 query head.  ``F.scaled_dot_product_attention`` is not used: it masks
 with -inf and rounds the scores its own way.
+
+Under an executed serving layout (``shard``, a ``distributed.sharding.
+Shard``):
+
+* ``prefill``: the queries are the rank's sequence block at their global
+  positions; K/V are all-gathered over the sequence axis (``act_kv_seq``
+  is unmapped), so each query runs the one-device loop over the same KV
+  chunks; the rank's own (k, v) block is returned;
+* ``decode`` / ``long``: q, k and v are whole on every rank (their
+  products reduce over the split d_model); the rank holds its block of
+  every cache (``cache_seq``: ``model`` in decode, the world in long),
+  padded to the ceiling block with empty slots (``pos`` -1), and only
+  the rank whose block holds the token's slot writes it.  A ring's slot
+  is ``pos % window`` (the ring's length is the window, or a cache
+  shorter than it whose positions never reach it, where ``pos % length
+  == pos`` too).  The softmax is distributed (flash-decode): each rank
+  takes its slots' maximum m_r and sum of ``exp(s - m_r)`` l_r in
+  float32; one all-gather brings every rank's (m_r, l_r), and each rank
+  forms the global maximum m and sum ``l = sum_r l_r exp(m_r - m)`` in
+  rank order; the probabilities ``exp(s - m) / l`` are rounded to the
+  activation dtype as one device rounds them; the local PV product in
+  float32 is all-reduced (sum) and cast to the PV dtype: two collectives
+  where max, sum and PV all-reduces take three.  The sums run in another
+  order than ``torch.softmax``'s, so this is held to a tolerance, not
+  bit for bit.
 """
 from __future__ import annotations
 
@@ -37,7 +62,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import Linear, rope, rope_freq, scalar
+from repro_torch.models.layers import Linear, linears, rope, rope_freq, scalar
 
 NEG_INF = -1e30
 
@@ -57,13 +82,12 @@ class Attention(nn.Module):
         self.wv = Linear(d, (kv, dh), bias=cfg.qkv_bias, **kw)
         self.wo = Linear(h * dh, d, **kw)
         self.register_buffer("freq", rope_freq(dh, cfg.rope_theta, device), persistent=False)
+        self.shard = None  # a Shard under an executed serving layout
 
     def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
         """Project + rope. x (B, T, D) -> q (B,T,KV,G,dh), k/v (B,T,KV,dh)."""
         cfg = self.cfg
-        q = self.wq(x)  # (B, T, H, dh)
-        k = self.wk(x)  # (B, T, KV, dh)
-        v = self.wv(x)
+        q, k, v = linears(x, (self.wq, self.wk, self.wv))  # (B, T, H | KV, dh)
         q = rope(q, positions, self.freq)
         k = rope(k, positions, self.freq)
         q = q * scalar(cfg.head_dim ** -0.5, q.dtype)
@@ -85,8 +109,12 @@ class Attention(nn.Module):
         b, t, _ = x.shape
         kv_g, g, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
         q, k, v = self._qkv(x, positions)
-        chunk = min(kv_chunk, t)
-        while t % chunk:
+        kk, vv = k, v
+        if self.shard is not None:  # the whole sequence's K/V for this block's queries
+            kk, vv = self.shard.seq.all_gather(k, 1), self.shard.seq.all_gather(v, 1)
+        tk = kk.shape[1]
+        chunk = min(kv_chunk, tk)
+        while tk % chunk:
             chunk //= 2
         qpos = positions if positions.dim() == 2 else positions[None].expand(b, t)
         qp = qpos[:, None, None, :, None]  # (B, 1, 1, T, 1)
@@ -94,8 +122,8 @@ class Attention(nn.Module):
         m = torch.full((b, kv_g, g, t), NEG_INF, dtype=torch.float32, device=x.device)
         l = torch.zeros((b, kv_g, g, t), dtype=torch.float32, device=x.device)
         o = torch.zeros((b, t, kv_g, g, dh), dtype=torch.float32, device=x.device)
-        for base in range(0, t, chunk):
-            kci, vci = k[:, base:base + chunk], v[:, base:base + chunk]
+        for base in range(0, tk, chunk):
+            kci, vci = kk[:, base:base + chunk], vv[:, base:base + chunk]
             s = torch.einsum("btkgd,bskd->bkgts", qf, kci.float())  # (B,KV,G,T,chunk)
             kpos = base + torch.arange(chunk, device=x.device)
             mask = qp >= kpos
@@ -130,26 +158,45 @@ class Attention(nn.Module):
         cpos = cache["pos"]
         quantized = "k_q" in cache
         length = cpos.shape[0]
-        slot = pos % length if window is not None else pos
-        cpos[slot] = pos
+        sh = self.shard
+        if sh is None:
+            slot = pos % length if window is not None else pos
+        else:  # the cache's global slot, then this rank's block of it (or none)
+            slot = pos % window if window is not None else pos
+            slot = slot - sh.cache.index * length
+            slot = slot if 0 <= slot < length else None
+        if slot is not None:
+            cpos[slot] = pos
+            if quantized:
+                for name, new in (("k", k_new), ("v", v_new)):
+                    cache[name + "_q"][:, slot], cache[name + "_s"][:, slot] = quant_kv(new[:, 0])
+            else:
+                cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+                cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
         if quantized:
-            for name, new in (("k", k_new), ("v", v_new)):
-                cache[name + "_q"][:, slot], cache[name + "_s"][:, slot] = quant_kv(new[:, 0])
             dt = x.dtype
             k = cache["k_q"].to(dt) * cache["k_s"][..., None].to(dt)
             v = cache["v_q"].to(dt) * cache["v_s"][..., None].to(dt)
         else:
             k, v = cache["k"], cache["v"]
-            k[:, slot] = k_new[:, 0].to(k.dtype)
-            v[:, slot] = v_new[:, 0].to(v.dtype)
         s = torch.einsum("btkgd,bskd->bkgts", q.float(), k.float())  # (B,KV,G,1,S) f32
         valid = (cpos >= 0) & (cpos <= pos)
         if window is not None:
             valid = valid & ((pos - cpos) < window)
         s = torch.where(valid, s, NEG_INF)
-        p = torch.softmax(s, dim=-1)
         pv = torch.promote_types(x.dtype, v.dtype)
-        o = torch.einsum("bkgts,bskd->btkgd", p.to(x.dtype).to(pv), v.to(pv))
+        if sh is None:
+            p = torch.softmax(s, dim=-1)
+            o = torch.einsum("bkgts,bskd->btkgd", p.to(x.dtype).to(pv), v.to(pv))
+        else:  # flash-decode over the split cache: every rank's (max, sum of exp), then PV
+            m = s.amax(dim=-1, keepdim=True)  # (B, KV, G, 1, 1)
+            ml = sh.cache.all_gather(torch.cat([m, torch.exp(s - m).sum(dim=-1, keepdim=True)],
+                                               dim=-1)[None], 0)
+            m = ml[..., :1].amax(dim=0)
+            l = (ml[..., 1:] * torch.exp(ml[..., :1] - m)).sum(dim=0)
+            p = (torch.exp(s - m) / l).to(x.dtype)
+            o = sh.cache.all_reduce(torch.einsum("bkgts,bskd->btkgd", p.float(),
+                                                 v.float())).to(pv)
         o = o.reshape(b, 1, cfg.n_heads, cfg.head_dim)
         return self._out_proj(o), cache
 

@@ -28,6 +28,18 @@ without memory.
 
 The tree is given as numpy arrays (``jax.tree.map(np.asarray, params)``
 on the reference's side); this module imports nothing of JAX.
+
+A rank's parameters under an executed serving layout (``shard_model``
+from a whole model, ``draw_rank_params`` from the init's generator):
+under ``decode`` and ``long`` a ``Transformer`` holding the rank's
+``param_pspec`` block of every parameter (the mLSTM's ``norm`` whole: it
+is named ``embed`` but spans the 2d inner width, whole on every rank),
+its modules told which axes their dimensions split over; under
+``prefill`` a ``StoredParams`` holding the rank's ``store_pspec`` block
+of every reference leaf.  ``draw_rank_params`` draws each leaf whole
+with the one-device init's generator, in its order, keeps the block and
+frees the leaf, so a rank's peak is one whole leaf and its values are
+one device's.
 """
 from __future__ import annotations
 
@@ -35,8 +47,19 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import Linear
-from repro_torch.models.transformer import Transformer
+from repro_torch.distributed.sharding import (
+    Layout,
+    NamedSharding,
+    PartitionSpec as P,
+    param_pspec,
+    shard_of,
+    store_pspec,
+)
+from repro_torch.models.attention import Attention
+from repro_torch.models.layers import Drawing, Linear, RMSNorm, refuse_w8a16
+from repro_torch.models.moe import MoE
+from repro_torch.models.transformer import StoredParams, Transformer, leaf_path
+from repro_torch.models.xlstm import SLSTM
 
 
 def _layer_tree(tree: dict, cfg: ModelConfig, i: int) -> dict:
@@ -252,3 +275,139 @@ def reference_axes(model: Transformer) -> dict[str, tuple]:
                 for path, _ in _layer_items(layer)]
     out.sort(key=lambda kv: kv[0])
     return {"/".join(map(str, path)): axes for path, axes in out}
+
+
+# ------------------------------------------------- a rank's blocks under a layout
+def compute_specs(model: Transformer, layout: Layout) -> dict:
+    """Each parameter's compute spec (``param_pspec``), by its name in
+    ``model``; the mLSTM's ``norm`` scale whole (the module docstring)."""
+    out = {"embed": param_pspec(("vocab", "embed"), layout),
+           "final_norm.scale": param_pspec(("embed",), layout)}
+    if model.unembed is not None:
+        out["unembed"] = param_pspec(("embed", "vocab"), layout)
+    for i, layer in enumerate(model.layers):
+        for path, _ in _layer_items(layer):
+            spec = param_pspec(_layer_leaf_axes(path, stacked=False), layout)
+            out[f"layers.{i}." + ".".join(path)] = P() if path[0] == "mlstm" and path[1] == "norm" else spec
+    return out
+
+
+def _pieces(meta: Transformer, layout: Layout) -> tuple[dict, tuple | None]:
+    """(each parameter's slices of this rank's piece, by name: its compute
+    block (decode, long), or its layer's slice of the stacked leaf's
+    storage block, None where the block holds other units (prefill);
+    the storage plan, ``_stored_plan``, under prefill), from a model of
+    whole shapes."""
+    mesh = layout.mesh
+    params = dict(meta.named_parameters())
+    if layout.kind != "prefill":
+        return {name: NamedSharding(mesh, spec).block(tuple(params[name].shape), mesh.rank)
+                for name, spec in compute_specs(meta, layout).items()}, None
+    shapes, specs = plan = _stored_plan(meta, layout)
+    out = {}
+    for name in params:
+        path, u = leaf_path(meta.cfg, name)
+        blk = NamedSharding(mesh, specs[path]).block(shapes[path], mesh.rank)
+        out[name] = blk if u is None else (blk[1:] if blk[0].start <= u < blk[0].stop else None)
+    return out, plan
+
+
+def _stored_plan(meta: Transformer, layout: Layout) -> tuple[dict, dict]:
+    """(each reference leaf's full shape, its storage spec), by path."""
+    shapes = {}
+    for path, ps in leaf_params(meta).items():
+        shape = tuple(ps[0].shape)
+        shapes[path] = (len(ps),) + shape if path.startswith("units/") else shape
+    axes = reference_axes(meta)
+    return shapes, {path: store_pspec(shapes[path], axes[path], layout) for path in shapes}
+
+
+def _finish(model: Transformer, layout: Layout, pieces: dict, plan: tuple | None):
+    """The rank's parameters from a model whose parameters hold their
+    pieces (``_pieces``): the model itself, its modules told their
+    splits (decode, long), or a ``StoredParams`` of the stacked blocks
+    (prefill)."""
+    shard = shard_of(layout, "a rank's parameters")
+    mesh = layout.mesh
+    if layout.kind != "prefill":
+        d = model.cfg.d_model
+        if d % shard.embed.size:
+            raise ValueError(f"d_model {d} does not split over {shard.embed.size} ranks")
+        specs = compute_specs(model, layout)
+
+        def split(spec):  # the Axis a leaf's first dimension splits over
+            entry = spec[0] if len(spec) else None
+            if entry is None:
+                return None
+            if entry not in ("model", ("model",)):
+                raise NotImplementedError(f"a parameter split over {entry} is not executed")
+            return shard.model
+
+        model.shard = shard
+        for name, m in model.named_modules():
+            if isinstance(m, Linear):
+                m.reduce = split(specs[f"{name}.w"])
+            elif isinstance(m, RMSNorm):
+                m.split = split(specs[f"{name}.scale"])
+            elif isinstance(m, (Attention, MoE, SLSTM)):
+                m.shard = shard
+        return model
+    shapes, specs = plan
+    held: dict = {}
+    for name, p in model.named_parameters():
+        if pieces[name] is not None:
+            path, u = leaf_path(model.cfg, name)
+            held.setdefault(path, []).append((u, p.data))
+    blocks = {}
+    for path, got in held.items():
+        got.sort(key=lambda x: -1 if x[0] is None else x[0])
+        blocks[path] = got[0][1] if got[0][0] is None else torch.stack([t for _, t in got])
+    want = {p for p in shapes}
+    if set(blocks) != want:
+        raise RuntimeError(f"stored blocks: missing {sorted(want - set(blocks))[:4]}")
+    return StoredParams(model.cfg, layout, shard, blocks, shapes, specs)
+
+
+def shard_model(model: Transformer, layout: Layout):
+    """This rank's parameters of a whole ``model`` under a serving layout
+    on a live mesh (the module docstring).  Under decode and long the
+    model's parameters are cut to their blocks in place."""
+    refuse_w8a16(model, "shard_model")
+    shard_of(layout, "shard_model")
+    pieces, plan = _pieces(model, layout)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            blk = pieces[name]
+            p.data = p.data[blk].clone() if blk is not None else p.data.new_empty(0)
+    return _finish(model, layout, pieces, plan)
+
+
+def draw_rank_params(cfg: ModelConfig, generator: torch.Generator, layout: Layout, device=None):
+    """This rank's parameters under a serving layout, drawn leaf by leaf
+    from ``generator`` in the one-device init's order (``layers.Drawing``):
+    each leaf drawn whole on ``device`` (default: the mesh's), cut to
+    the rank's piece and freed; the leaves the init does not draw (norm
+    scales, biases) are made whole and cut.  The values are those of
+    ``Transformer(cfg, generator=...)`` on one device."""
+    shard_of(layout, "init_params")
+    device = layout.mesh.device if device is None else device
+    order: list = []
+    meta = Transformer(cfg, device="meta", generator=Drawing(
+        torch.Generator(), lambda w: order.append(w.untyped_storage()._cdata) or w))
+    by_storage = {p.untyped_storage()._cdata: name for name, p in meta.named_parameters()}
+    names = [by_storage[c] for c in order]
+    pieces, plan = _pieces(meta, layout)
+    turn = iter(names)
+
+    def keep(w: torch.Tensor) -> torch.Tensor:
+        blk = pieces[next(turn)]
+        return w[blk].clone() if blk is not None else w.new_empty(0)
+
+    model = Transformer(cfg, generator=Drawing(generator, keep), device=device)
+    drawn_names = set(names)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name not in drawn_names:
+                blk = pieces[name]
+                p.data = p.data[blk].clone() if blk is not None else p.data.new_empty(0)
+    return _finish(model, layout, pieces, plan)

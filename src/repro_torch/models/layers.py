@@ -36,21 +36,65 @@ the MoE experts, the RG-LRU and the xLSTM stay float32, as in the
 reference.  The port's layers are not stacked, so each layer's scale is
 taken over its own input dimension: the reference's, given the logical
 axes, is taken over axis 1 of a stacked leaf, the same numbers.
+
+Under an executed serving layout (``distributed.sharding.Shard``) a
+rank holds blocks of the weights.  A ``Linear`` whose input dimension is
+split (``reduce``, an ``Axis``: q/k/v, the FFN's gate and up, the
+router, the recurrent kinds' input projections) takes the partial
+product of its input block and weight rows, in float32 from the
+operands rounded to the activation dtype, sums the partials over the
+axis in float32 and rounds once to that dtype, as the one-device
+product accumulates in float32 and rounds once (a bf16 sum of bf16
+partials would round twice); the bias is added after the sum.  A
+``Linear`` whose output dimension is split computes its block with no
+collective; ``linears`` sends the partials of several products of one
+input (q/k/v, the FFN's gate and up) in one all-reduce.  An ``RMSNorm``
+whose input is split (``split``) sums the block's squares, all-reduces
+the sum and scales its block; it is not folded into the products'
+all-reduce, since one device rounds the normalised values to the
+activation dtype before the products, which needs the sum first.
+w8a16 weights on a mesh raise.
+
+A ``Drawing`` given as the init's generator passes every leaf drawn
+from its generator through its ``keep`` as it is drawn, in the init's
+order: a rank's parameter blocks are drawn leaf by leaf from the
+one-device init's generator that way, each leaf kept as its block and
+freed (``models.zoo.init_params`` with a layout).
 """
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
 
 
-def normal_init(shape, scale: float, generator: torch.Generator | None, device) -> torch.Tensor:
+class Drawing(NamedTuple):
+    """An init's generator whose every drawn leaf passes through ``keep``
+    (the leaf in, the tensor to keep out)."""
+    generator: torch.Generator
+    keep: Callable[[torch.Tensor], torch.Tensor]
+
+
+def generator_of(generator) -> torch.Generator | None:
+    """The ``torch.Generator`` to draw from (a ``Drawing``'s own)."""
+    return generator.generator if isinstance(generator, Drawing) else generator
+
+
+def drawn(generator, w: torch.Tensor) -> torch.Tensor:
+    """A leaf just drawn from ``generator``, through its ``keep`` when it
+    is a ``Drawing``."""
+    return generator.keep(w) if isinstance(generator, Drawing) else w
+
+
+def normal_init(shape, scale: float, generator: torch.Generator | Drawing | None,
+                device) -> torch.Tensor:
     """float32 N(0, scale^2) from ``generator``; uninitialised storage when
     no generator is given (a loader fills it)."""
     w = torch.empty(shape, dtype=torch.float32, device=device)
     if generator is not None:
-        w.normal_(generator=generator).mul_(scale)
+        w = drawn(generator, w.normal_(generator=generator_of(generator)).mul_(scale))
     return w
 
 
@@ -82,11 +126,14 @@ class Linear(nn.Module):
                                       generator, device), requires_grad=False)
         self.b = (nn.Parameter(torch.zeros(out_shape, dtype=torch.float32, device=device),
                                requires_grad=False) if bias else None)
+        self.reduce = None  # the Axis its input dimension is split over, under a layout
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
         if self.w is None:  # w8a16: dequantise, then the product
             dt = dtype or x.dtype
             return linear(x, self.w_q.to(dt) * self.w_s.to(dt), self.b, dtype)
+        if self.reduce is not None:
+            return linear_reduced(x, self.w, self.b, dtype, self.reduce)
         return linear(x, self.w, self.b, dtype)
 
     def set_w8a16(self, w_q: torch.Tensor, w_s: torch.Tensor) -> None:
@@ -95,6 +142,15 @@ class Linear(nn.Module):
         self.w = None
         self.register_buffer("w_q", w_q)
         self.register_buffer("w_s", w_s)
+
+
+def refuse_w8a16(model: nn.Module, what: str) -> None:
+    """Raise on w8a16 weights (``quantize_model``) under a mesh: the
+    reference plans them (``quantize_axes``' specs), the port does not
+    execute them."""
+    if any(isinstance(m, Linear) and m.w is None for m in model.modules()):
+        raise NotImplementedError(f"{what}: w8a16 weights under a mesh are not executed by the "
+                                  "port (ROADMAP, Queue 1: the next slice); serve them on one device")
 
 
 def quantize_model(model: nn.Module) -> nn.Module:
@@ -112,11 +168,14 @@ class RMSNorm(nn.Module):
 
     def __init__(self, dim: int, eps: float, *, device=None):
         super().__init__()
-        self.eps = eps
+        self.dim, self.eps = dim, eps
         self.scale = nn.Parameter(torch.ones((dim,), dtype=torch.float32, device=device),
                                   requires_grad=False)
+        self.split = None  # the Axis its input's last dimension is split over, under a layout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.split is not None:
+            return rms_norm_split(x, self.scale, self.eps, self.dim, self.split)
         return rms_norm(x, self.scale, self.eps)
 
 
@@ -132,13 +191,67 @@ class FFN(nn.Module):
         self.down = Linear(d_ff, d_model, generator=generator, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(act(self.act)(self.gate(x)) * self.up(x))
+        gate, up = linears(x, (self.gate, self.up))
+        return self.down(act(self.act)(gate) * up)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, eps: float, dim: int,
+                   axis) -> torch.Tensor:
+    """``rms_norm`` of a tensor whose last dimension (``dim`` wide) is
+    split over ``axis``: x and ``scale`` this rank's blocks.  The block's
+    sum of squares in float32, summed over the axis, over ``dim``."""
+    xf = x.float()
+    var = axis.all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True)) / dim
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def rms_norm_block(x: torch.Tensor, scale: torch.Tensor, eps: float, cols: slice) -> torch.Tensor:
+    """``rms_norm`` of a whole x whose output is wanted on the block
+    ``cols`` of its last dimension only (``scale`` that block): the
+    variance over the whole row, the block scaled."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf[..., cols] * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def linear_reduced(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, dtype, axis):
+    """``linear`` with its input dimension split over ``axis``: x (..., in
+    block) and w (in block, *out) this rank's blocks.  The partial
+    product of the operands rounded to ``dtype`` (default x's), in
+    float32, summed over the axis in float32, rounded once to the dtype,
+    then the bias."""
+    dt = dtype or x.dtype
+    y = torch.matmul(x.to(dt).float(), w.to(dt).float().reshape(w.shape[0], -1))
+    y = axis.all_reduce(y).to(dt).reshape(*x.shape[:-1], *w.shape[1:])
+    if b is not None:
+        y = y + b.to(dt)
+    return y
+
+
+def linears(x: torch.Tensor, mods, dtype: torch.dtype | None = None) -> list:
+    """Each ``Linear`` of ``mods`` applied to ``x``.  Where all of them
+    split their input dimension over one axis (a layout's contracting
+    products of one input: q/k/v, gate/up), their float32 partial
+    products are summed in one all-reduce, each then rounded once and
+    given its bias, as ``linear_reduced`` would one by one."""
+    axis = mods[0].reduce
+    if axis is None or any(m.reduce is not axis or m.w is None for m in mods):
+        return [m(x, dtype) for m in mods]
+    dt = dtype or x.dtype
+    xf = x.to(dt).float()
+    flat = [m.w.to(dt).float().reshape(m.w.shape[0], -1) for m in mods]
+    y = axis.all_reduce(torch.cat([torch.matmul(xf, w) for w in flat], dim=-1)).to(dt)
+    out = []
+    for m, part in zip(mods, y.split([w.shape[1] for w in flat], dim=-1)):
+        part = part.reshape(*x.shape[:-1], *m.w.shape[1:])
+        out.append(part if m.b is None else part + m.b.to(dt))
+    return out
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,

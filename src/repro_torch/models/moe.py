@@ -35,6 +35,24 @@ Switch loss ``E * sum(frac_tokens * mean_prob)`` is a product of two
 batch means.  ``mean_prob`` enters linearly, so its global mean needs no
 collective here: the step averages each rank's aux term over the ranks
 (``train.train_step``), which sums the gradient as the whole batch's.
+
+Expert parallelism under an executed serving layout (``shard``): a rank
+holds its block of the experts (``experts`` on ``model``) and runs only
+the pairs routed to them, in their capacity slots; the combined output
+of every rank's experts is summed over ``model`` in float32 and then
+rounded to the activation dtype, as one device sums the k terms in
+float32 and rounds once.
+
+* decode (``group_by_batch``) groups the *whole* batch, whatever the
+  ``data`` split: as under GSPMD, the capacity positions (and so which
+  pairs drop) come from routing over every row, so the router's logits
+  are all-gathered over the batch axis before the cumulative positions.
+  The input is the rank's d_model block; it is all-gathered over
+  ``model`` for the experts' products, and the rank keeps its block of
+  the output;
+* prefill routes a sequence a group, so the input's sequence blocks
+  are all-gathered over ``model`` and routed whole; the summed output
+  comes back as the rank's sequence block (a reduce-scatter).
 """
 from __future__ import annotations
 
@@ -91,14 +109,18 @@ class MoE(nn.Module):
                                    requires_grad=False)
         self.shared = (FFN(d, ff * cfg.n_shared_experts, cfg.act, **kw)
                        if cfg.n_shared_experts else None)
+        self.shard = None  # a Shard under an executed serving layout
 
     def route(self, xg: torch.Tensor) -> Routing:
         """Route the groups xg (G, S, D)."""
+        return self.route_logits(self.router(xg, torch.float32))
+
+    def route_logits(self, logits: torch.Tensor) -> Routing:
+        """Route the groups by their float32 router logits (G, S, E)."""
         cfg = self.cfg
-        g, s, _ = xg.shape
+        g, s, _ = logits.shape
         e, k = cfg.n_experts, cfg.moe_top_k
         cap = max(int(s * k * cfg.capacity_factor / e), 1)
-        logits = self.router(xg, torch.float32)  # (G, S, E)
         probs = softmax(logits)
         vals, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
         vals, experts = vals[..., :k], experts[..., :k]
@@ -109,32 +131,64 @@ class MoE(nn.Module):
         slot = torch.gather(before, -1, experts[..., None])[..., 0].long()
         return Routing(logits, probs, gates, experts, onehot, slot, slot < cap, cap)
 
-    def forward(self, x: torch.Tensor, *, group_by_batch: bool = False):
-        """x (B, T, D) -> (out (B, T, D), {"moe_aux", "moe_zloss"} float32)."""
+    def _experts(self, xg: torch.Tensor, r: Routing, first: int) -> torch.Tensor:
+        """The gated sum, float32 (G, S, D), of the pairs of the tokens xg
+        (G, S, D) (routing ``r``) kept by the experts this module holds,
+        ``first`` the first of them: each kept pair's row in (G, E x C + 1),
+        every other pair in the last (dump) row, which no expert reads."""
         cfg = self.cfg
-        b, t, d = x.shape
-        e, k, dt = cfg.n_experts, cfg.moe_top_k, x.dtype
-        xg = x.reshape(1, b * t, d) if group_by_batch else x
-        g, s, _ = xg.shape
-        r = self.route(xg)
-        cap = r.capacity
-        # each kept pair's row in (G, E x C + 1); dropped pairs go to the last
-        # (dump) row, which no expert reads
-        rows = torch.where(r.kept, r.experts * cap + r.slot, e * cap)  # (G, S, K)
-        gi = torch.arange(g, device=x.device)[:, None, None].expand(g, s, k)
-        si = torch.arange(s, device=x.device)[None, :, None].expand(g, s, k)
-        xe = x.new_zeros((g, e * cap + 1, d))
+        g, s, d = xg.shape
+        e, k, cap, dt = self.w_gate.shape[0], cfg.moe_top_k, r.capacity, xg.dtype
+        mine = r.kept & (r.experts >= first) & (r.experts < first + e)
+        rows = torch.where(mine, (r.experts - first) * cap + r.slot, e * cap)  # (G, S, K)
+        gi = torch.arange(g, device=xg.device)[:, None, None].expand(g, s, k)
+        si = torch.arange(s, device=xg.device)[None, :, None].expand(g, s, k)
+        xe = xg.new_zeros((g, e * cap + 1, d))
         xe[gi, rows] = xg[gi, si]
         xe = xe[:, :e * cap].reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
         h = act(cfg.act)(torch.bmm(xe, self.w_gate.to(dt))) * torch.bmm(xe, self.w_up.to(dt))
         ye = torch.bmm(h, self.w_down.to(dt))  # (E, G x C, D)
         ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
         ye = torch.cat([ye, ye.new_zeros((g, 1, d))], dim=1)
-        weight = torch.where(r.kept, r.gates, 0.0).to(dt).float()  # the combine, rounded to dt
-        acc = torch.zeros((g, s, d), dtype=torch.float32, device=x.device)
+        weight = torch.where(mine, r.gates, 0.0).to(dt).float()  # the combine, rounded to dt
+        acc = torch.zeros((g, s, d), dtype=torch.float32, device=xg.device)
         for j in range(k):
             acc = acc + ye[gi[..., j], rows[..., j]].float() * weight[..., j, None]
-        out = acc.to(dt).reshape(b, t, d)
+        return acc
+
+    def _sharded(self, x: torch.Tensor, group_by_batch: bool):
+        """(out, routing) under the layout of ``self.shard`` (the module
+        docstring): decode's x (B_local, 1, D block), prefill's
+        (B_local, T block, D)."""
+        sh, dt = self.shard, x.dtype
+        first = sh.experts.block(self.cfg.n_experts).start
+        if group_by_batch:  # decode: route the global batch
+            b = x.shape[0]
+            logits = sh.batch.all_gather(self.router(x, torch.float32).reshape(1, b, -1), 1)
+            r = self.route_logits(logits)
+            mine = slice(sh.batch.index * b, (sh.batch.index + 1) * b)
+            r_rows = Routing(*(f[:, mine] if isinstance(f, torch.Tensor) else f for f in r))
+            xg = sh.embed.all_gather(x, -1).reshape(1, b, -1)
+            acc = sh.experts.all_reduce(self._experts(xg, r_rows, first))
+            out = acc.to(dt).reshape(b, 1, -1)[..., sh.embed.block(self.cfg.d_model)]
+            return out, r
+        if sh.seq is not sh.experts:
+            raise NotImplementedError("prefill MoE: the experts' axis must be the sequence's")
+        xg = sh.seq.all_gather(x, 1)  # (B, T, D): a sequence a group
+        r = self.route(xg)
+        return sh.seq.reduce_scatter(self._experts(xg, r, first), 1).to(dt), r
+
+    def forward(self, x: torch.Tensor, *, group_by_batch: bool = False):
+        """x (B, T, D) -> (out (B, T, D), {"moe_aux", "moe_zloss"} float32)."""
+        cfg = self.cfg
+        b, t, d = x.shape
+        e, dt = cfg.n_experts, x.dtype
+        if self.shard is not None:
+            out, r = self._sharded(x, group_by_batch)
+        else:
+            xg = x.reshape(1, b * t, d) if group_by_batch else x
+            r = self.route(xg)
+            out = self._experts(xg, r, 0).to(dt).reshape(b, t, d)
         if self.shared is not None:
             out = out + self.shared(x)
         # Switch load-balance loss + router z-loss

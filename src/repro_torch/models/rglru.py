@@ -13,6 +13,19 @@ The gates and the recurrence run in float32 (the gate linears cast their
 weights to float32).  The full-sequence form is ``linear_scan``, a
 log-depth parallel scan over T in ``jax.lax.associative_scan``'s order
 of combines, not a T-step loop; decode is one step of the recurrence.
+
+Under an executed serving layout (``shard``): decode's input products
+reduce over the split d_model and ``w_out`` gives the rank's d_model
+block (``layers.Linear``); the state is whole on every ``model`` rank
+(``act_lru`` is unmapped there).  Prefill goes from sequence blocks to
+channel blocks (``act_lru``) for the conv and the scan: the input's
+sequence is all-gathered over ``model``, each rank computes its block of
+the ``W`` channels (the recurrent and gate branches' columns), the conv
+over them, the conv's output all-gathered over the channels for the
+gates' products (each rank its gates' columns), the scan over its
+channels; ``w_out``'s partial products over the channel block are
+summed and scattered back to sequence blocks (a reduce-scatter in
+float32), then rounded once.
 """
 from __future__ import annotations
 
@@ -20,8 +33,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (Linear, causal_conv, gelu_tanh, normal_init, sigmoid,
-                                       softplus)
+from repro_torch.models.layers import (Linear, causal_conv, drawn, gelu_tanh, generator_of,
+                                       linear, linears, normal_init, sigmoid, softplus)
 
 _C = 8.0
 
@@ -79,26 +92,54 @@ class RGLRU(nn.Module):
         self.w_i = Linear(w, w, **kw)
         lam = torch.empty((w,), dtype=torch.float32, device=device)
         if generator is not None:  # the inverse softplus of -log(u) / 8
-            u = lam.uniform_(0.9, 0.999, generator=generator)
-            lam = torch.log(torch.expm1(-torch.log(u) / _C))
+            u = lam.uniform_(0.9, 0.999, generator=generator_of(generator))
+            lam = drawn(generator, torch.log(torch.expm1(-torch.log(u) / _C)))
         self.lam = nn.Parameter(lam, requires_grad=False)
         self.conv_w = nn.Parameter(normal_init((cfg.conv_width, w), 0.01, generator, device),
                                    requires_grad=False)
         self.conv_b = nn.Parameter(torch.zeros((w,), dtype=torch.float32, device=device),
                                    requires_grad=False)
+        self.shard = None  # a Shard under an executed serving layout
 
-    def _gates(self, xi: torch.Tensor):
-        """(a, sqrt(1 - a^2) i xi), float32, from the conv output xi."""
-        r = sigmoid(self.w_a(xi, torch.float32))
-        i = sigmoid(self.w_i(xi, torch.float32))
-        a = torch.exp(-_C * softplus(self.lam.float()) * r)
+    def _gates(self, xi: torch.Tensor, xi_all: torch.Tensor | None = None,
+               cols: slice = slice(None)):
+        """(a, sqrt(1 - a^2) i xi), float32, from the conv output xi; under
+        prefill's channel split, the gates' ``cols`` from every channel's
+        ``xi_all``."""
+        if xi_all is None:
+            r = sigmoid(self.w_a(xi, torch.float32))
+            i = sigmoid(self.w_i(xi, torch.float32))
+        else:
+            r = sigmoid(linear(xi_all, self.w_a.w[:, cols], dtype=torch.float32))
+            i = sigmoid(linear(xi_all, self.w_i.w[:, cols], dtype=torch.float32))
+        a = torch.exp(-_C * softplus(self.lam[cols].float()) * r)
         beta = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))
         return a, beta * i * xi.float()
 
+    def _forward_split(self, x: torch.Tensor) -> torch.Tensor:
+        """Prefill under the layout: x the rank's sequence block (B, T
+        block, D) -> its block of the output (the module docstring)."""
+        ax = self.shard.seq
+        w = self.lam.shape[0]
+        if w % ax.size:
+            raise NotImplementedError(f"RG-LRU prefill: width {w} over {ax.size} ranks")
+        cols = ax.block(w)
+        xs = ax.all_gather(x, 1)  # (B, T, D)
+        xi = linear(xs, self.w_rec.w[:, cols])
+        gate = gelu_tanh(linear(xs, self.w_gate.w[:, cols]))
+        xi, _ = causal_conv(xi, self.conv_w[:, cols], self.conv_b[cols])
+        _, h = linear_scan(*self._gates(xi, ax.all_gather(xi, -1), cols))
+        dt = x.dtype
+        y = (h.to(dt) * gate).float()
+        part = torch.matmul(y, self.w_out.w[cols].to(dt).float())
+        return ax.reduce_scatter(part, 1).to(dt)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The full sequence: x (B, T, D) -> (B, T, D)."""
-        xi = self.w_rec(x)
-        gate = gelu_tanh(self.w_gate(x))
+        if self.shard is not None:
+            return self._forward_split(x)
+        xi, gate = linears(x, (self.w_rec, self.w_gate))
+        gate = gelu_tanh(gate)
         xi, _ = causal_conv(xi, self.conv_w, self.conv_b)
         _, h = linear_scan(*self._gates(xi))
         return self.w_out(h.to(x.dtype) * gate)
@@ -107,8 +148,8 @@ class RGLRU(nn.Module):
         """One token: x (B, 1, D), ``state`` from ``make_rglru_state``,
         updated in place (``h`` float32; ``conv`` the last inputs, in x's
         dtype as the reference returns them)."""
-        xi = self.w_rec(x)
-        gate = gelu_tanh(self.w_gate(x))
+        xi, gate = linears(x, (self.w_rec, self.w_gate))
+        gate = gelu_tanh(gate)
         xi, conv = causal_conv(xi, self.conv_w, self.conv_b, state["conv"])
         a, b = self._gates(xi)
         h = a[:, 0] * state["h"] + b[:, 0]

@@ -34,14 +34,38 @@ float32 masters.  A decode step whose caches are wider than the
 activations (the reference's ``generate`` uses float32 caches) promotes
 the residual stream to the wider dtype from the first attention layer's
 output on, exactly as the reference does.
+
+Under an executed serving layout (``distributed.sharding.Shard``, on a
+live (``data``, ``model``) mesh, one process a rank):
+
+* ``decode`` and ``long``: a ``Transformer`` holding the rank's
+  ``param_pspec`` blocks (``models.convert.shard_model`` or
+  ``models.zoo.init_params(..., layout=)``) runs ``forward_decode`` on
+  its rows (``act_batch``) with the residual stream as its d_model
+  block: the embedding lookup gives the block, the norms reduce their
+  sums of squares, the products that contract d_model reduce their
+  float32 partials (``layers.Linear``), those that produce d_model give
+  the block, the logits are the partial products against the table's
+  block summed over ``model`` (float32, equal on every ``model`` rank);
+  ``init_caches`` makes the rank's blocks of the caches
+  (``serve.decode.cache_pspecs``: KV over ``cache_seq``, padded to the
+  ceiling block with empty slots; recurrent states over the rows);
+* ``prefill``: ``StoredParams`` holds the rank's ZeRO block
+  (``store_pspec``) of every reference leaf and ``forward_prefill``
+  gathers one layer's compute parameters at a time (one all-gather over
+  the world), runs it on the rank's rows and sequence block
+  (``act_batch``, ``act_seq``) and frees it; the embedding table is
+  gathered for the lookup and again for the logits.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 import os
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -49,6 +73,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import Layout, NamedSharding, Shard
 from repro_torch.models.attention import Attention, make_cache
 from repro_torch.models.layers import FFN, RMSNorm, normal_init, rms_norm, scalar
 from repro_torch.models.moe import MoE
@@ -95,8 +120,11 @@ class AttnLayer(nn.Module):
 
     def make_cache(self, batch: int, max_len: int, dtype, device) -> dict:
         """A windowed layer's ring holds min(window, max_len) slots, a
-        global layer's max_len."""
+        global layer's max_len; under a layout, this rank's ceiling
+        block of them."""
         length = min(self.window, max_len) if self.window else max_len
+        if self.attn.shard is not None:
+            length = -(-length // self.attn.shard.cache.size)
         return make_cache(self.cfg, batch, length, dtype, device)
 
 
@@ -137,13 +165,20 @@ class XLSTMLayer(nn.Module):
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         block = (MLSTM if kind == "mlstm" else SLSTM)(cfg, generator=generator, device=device)
         setattr(self, kind, block)  # the reference's tree key: "mlstm" / "slstm"
+        self.shard = None  # a Shard under the executed prefill layout
 
     @property
     def block(self) -> nn.Module:
         return getattr(self, self.kind)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        return x + self.block(self.norm1(x)), None, None
+        if self.shard is None:
+            return x + self.block(self.norm1(x)), None, None
+        # prefill: the block runs over the whole gathered sequence, and the
+        # rank keeps its sequence block of the output
+        seq = self.shard.seq
+        out = self.block(seq.all_gather(self.norm1(x), 1))
+        return x + out[:, seq.block(out.shape[1])], None, None
 
     def decode(self, x: torch.Tensor, state: dict, pos: int):
         h, state = self.block.decode(self.norm1(x), state)
@@ -203,7 +238,7 @@ class Transformer(nn.Module):
                  device=None):
         super().__init__()
         meta = device is not None and torch.device(device).type == "meta"
-        device = torch.device("meta") if meta and generator is None else resolve_device(device)
+        device = torch.device("meta") if meta else resolve_device(device)
         self.cfg = cfg
         d, v = cfg.d_model, cfg.vocab_size
         self.embed = nn.Parameter(normal_init((v, d), 1.0 / math.sqrt(d), generator, device),
@@ -214,6 +249,7 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(
             make_layer(cfg, kind, w, generator=generator, device=device)
             for kind, w in zip(cfg.layer_kinds, cfg.layer_windows))
+        self.shard = None  # a Shard when the model holds a rank's blocks (decode, long)
 
     @property
     def device(self) -> torch.device:
@@ -239,7 +275,8 @@ class Transformer(nn.Module):
         cast to the model dtype, the product in x's (promoted) dtype with
         float32 output, as the reference's ``preferred_element_type``."""
         w = self.unembed_matrix().to(self.dtype)
-        return torch.matmul(x.float(), w.float())
+        out = torch.matmul(x.float(), w.float())
+        return out if self.shard is None else self.shard.embed.all_reduce(out)
 
     def _run_layer(self, layer: nn.Module, x: torch.Tensor, positions: torch.Tensor):
         """One layer: in bf16 on its masters rounded to bf16 (the reference's
@@ -335,22 +372,169 @@ class Transformer(nn.Module):
         hidden, kvs = self.forward_hidden(tokens, prefix_embeds, collect_kv=True)
         return self.logits(hidden[:, -1:, :]), kvs
 
+    def rows(self, batch: int) -> int:
+        """This rank's rows of a batch of ``batch`` (all of it on one device)."""
+        if self.shard is None:
+            return batch
+        if batch % self.shard.batch.size:
+            raise ValueError(f"a batch of {batch} does not split over {self.shard.batch.size} "
+                             "ranks of act_batch")
+        return batch // self.shard.batch.size
+
     def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16) -> list:
         """Per-layer decode caches, one a layer: KV rings for attention
         layers (a windowed layer's holds min(window, max_len) slots, a
         global layer's max_len), recurrent states (dicts of float32
-        tensors, the conv histories in ``dtype``) for the others."""
-        return [layer.make_cache(batch, max_len, dtype, self.device) for layer in self.layers]
+        tensors, the conv histories in ``dtype``) for the others.  A
+        rank's model makes the rank's blocks of a ``batch``-row cache."""
+        b = self.rows(batch)
+        return [layer.make_cache(b, max_len, dtype, self.device) for layer in self.layers]
 
     @torch.inference_mode()
     def forward_decode(self, tokens: torch.Tensor, caches: list, pos: int):
-        """One decode step. tokens (B, 1) at absolute position ``pos``.
-        Returns (logits (B, 1, V) float32, caches), the caches updated in
-        place."""
+        """One decode step. tokens (B, 1) at absolute position ``pos`` (a
+        rank's model: its rows).  Returns (logits (B, 1, V) float32,
+        caches), the caches updated in place."""
         x = self.embed_tokens(tokens)
         for layer, cache in zip(self.layers, caches):
             x, _ = layer.decode(x, cache, pos)
-        return self.logits(rms_norm(x, self.final_norm.scale, self.cfg.norm_eps)), caches
+        return self.logits(self.final_norm(x)), caches
+
+
+def leaf_path(cfg: ModelConfig, name: str) -> tuple[str, int | None]:
+    """(the reference leaf path, the unit index or None) of a parameter
+    named ``name`` in a ``Transformer`` (``layers.<i>.<module path>``, or
+    a top-level name)."""
+    if not name.startswith("layers."):
+        return name.replace(".", "/"), None
+    _, i, rest = name.split(".", 2)
+    i, n_unit = int(i), len(cfg.pattern_unit)
+    rest = rest.replace(".", "/")
+    if i < cfg.n_units * n_unit:
+        u, pos = divmod(i, n_unit)
+        return f"units/{pos}/{rest}", u
+    return f"leftover/{i - cfg.n_units * n_unit}/{rest}", None
+
+
+@dataclasses.dataclass
+class StoredParams:
+    """A rank's parameters under the executed ``prefill`` layout: its ZeRO
+    block (``store_pspec``) of every reference leaf, ``blocks`` by leaf
+    path (``models.convert.reference_leaves``' names), with each leaf's
+    full ``shapes`` and storage ``specs``; ``shard`` the layout's
+    ``Shard``.  Made by ``models.convert.shard_model`` or
+    ``models.zoo.init_params(..., layout=)``.  ``gathered_bytes`` counts
+    the bytes the gathers have landed on this rank."""
+
+    cfg: ModelConfig
+    layout: Layout
+    shard: Shard
+    blocks: dict
+    shapes: dict
+    specs: dict
+    gathered_bytes: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.blocks.values())).device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32
+
+    def _gather(self, want: list) -> list:
+        """The whole value of each (leaf path, unit index or None) of
+        ``want`` (a unit leaf's layer at that index): every rank's pieces
+        in one all-gather over the world (a piece is a block's slice at
+        the unit, zeros where the block holds other units)."""
+        mesh = self.layout.mesh
+        world = math.prod(mesh.shape)
+        shards = [NamedSharding(mesh, self.specs[path]) for path, _ in want]
+        pieces = []
+        for (path, u), sh in zip(want, shards):
+            b = self.blocks[path]
+            if u is not None:
+                units = sh.block(self.shapes[path], mesh.rank)[0]
+                b = b[u - units.start] if units.start <= u < units.stop else b.new_zeros(b.shape[1:])
+            pieces.append(b)
+        local = torch.cat([p.reshape(-1) for p in pieces])
+        out = local.new_empty((world, local.numel()))
+        dist.all_gather(list(out.unbind(0)), local)
+        self.gathered_bytes += out.numel() * out.element_size()
+        whole = [local.new_empty(self.shapes[path][0 if u is None else 1:]) for path, u in want]
+        for r in range(world):
+            off = 0
+            for (path, u), sh, piece, w in zip(want, shards, pieces, whole):
+                n = piece.numel()
+                blk = sh.block(self.shapes[path], r)
+                if u is None or blk[0].start <= u < blk[0].stop:
+                    w[blk if u is None else blk[1:]] = out[r, off:off + n].view(piece.shape)
+                off += n
+        return whole
+
+    def _layer(self, i: int) -> nn.Module:
+        """Layer i with its compute parameters gathered whole, but for the
+        experts (the rank's block: ``experts`` on ``model``), and the
+        layout's ``Shard`` set on the modules that execute it."""
+        cfg, sh = self.cfg, self.shard
+        layer = make_layer(cfg, cfg.layer_kinds[i], cfg.layer_windows[i], device=self.device)
+        params = dict(layer.named_parameters())
+        whole = self._gather([leaf_path(cfg, f"layers.{i}.{name}") for name in params])
+        experts = sh.experts.block(cfg.n_experts) if cfg.n_experts else None
+        for (name, p), w in zip(params.items(), whole):
+            if name.split(".")[-1] in ("w_gate", "w_up", "w_down") and name.startswith("moe."):
+                w = w[experts].clone()
+            p.data = w
+        for m in layer.modules():
+            if hasattr(m, "shard"):
+                m.shard = sh
+        return layer
+
+    @torch.inference_mode()
+    def forward_prefill(self, tokens: torch.Tensor, prefix_embeds: torch.Tensor | None = None):
+        """The prefill of the whole batch's ``tokens`` (B, T) (and
+        ``prefix_embeds`` (B, P, D), sharded as the tokens are) on this
+        rank's rows and sequence block.  Returns (the last position's
+        logits (B_local, 1, V) float32, equal on every ``model`` rank; one
+        (k, v) an attention layer, each the rank's (B_local, T block, KV,
+        dh) block)."""
+        cfg, sh, dt = self.cfg, self.shard, self.dtype
+        b = tokens.shape[0]
+        if b % sh.batch.size:
+            raise ValueError(f"a batch of {b} does not split over {sh.batch.size} ranks")
+        rows = sh.batch.block(b)
+        (table,) = self._gather([("embed", None)])
+        x = table[tokens[rows]].to(dt) * scalar(math.sqrt(cfg.d_model), dt)
+        del table
+        if cfg.frontend == "vision_stub" and prefix_embeds is not None:
+            x = torch.cat([prefix_embeds[rows].to(dt), x], dim=1)
+        t = x.shape[1]
+        if t % sh.seq.size:
+            raise ValueError(f"a sequence of {t} does not split over {sh.seq.size} ranks")
+        seq = sh.seq.block(t)
+        x = x[:, seq].contiguous()
+        positions = torch.arange(seq.start, seq.stop, device=x.device)[None].expand(x.shape[0], -1)
+        kvs = []
+        for i in range(cfg.n_layers):
+            layer = self._layer(i)
+            if dt == torch.float32:
+                x, kv, _ = layer(x, positions)
+            else:
+                x, kv, _ = torch.func.functional_call(layer, rounded_params(layer, dt),
+                                                      (x, positions))
+            if kv is not None:
+                kvs.append(kv)
+            del layer
+        # the last position lives on the sequence's last rank: its value
+        # plus the others' zeros, exactly
+        last = x[:, -1:].float() if seq.stop == t else x.new_zeros((x.shape[0], 1, x.shape[2]),
+                                                                   dtype=torch.float32)
+        last = sh.seq.all_reduce(last).to(x.dtype)
+        top = "embed" if cfg.tie_embeddings else "unembed"
+        scale, w = self._gather([("final_norm/scale", None), (top, None)])
+        hidden = rms_norm(last, scale, cfg.norm_eps)
+        w = (w.T if cfg.tie_embeddings else w).to(dt)
+        return torch.matmul(hidden.float(), w.float()), kvs
 
 
 def chunked_xent(hidden: torch.Tensor, w_unembed: torch.Tensor, targets: torch.Tensor, *,

@@ -23,6 +23,17 @@ an RMS norm and a GeGLU FFN of width round(4 d 4/3 / 64) 64.
 
 Gates, memories and the recurrence run in float32; the gate linears cast
 their weights to float32.
+
+Under an executed serving layout (``shard``): in decode the states are
+whole on every ``model`` rank (the heads are unmapped); the input
+products reduce over the split d_model and the output products give
+the rank's d_model block (``layers.Linear``).  The mLSTM's ``norm``
+spans its 2d inner width, which is whole on every rank, so the rank
+holds that scale whole; the sLSTM's post-norm takes the whole hidden
+state's variance and scales the rank's d_model block
+(``layers.rms_norm_block``).  Prefill puts no constraint inside the
+blocks (as the reference): the layer gathers the sequence and runs the
+block whole (``models.transformer.XLSTMLayer``).
 """
 from __future__ import annotations
 
@@ -31,7 +42,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (FFN, Linear, RMSNorm, causal_conv, log_sigmoid,
-                                       normal_init, rms_norm, scalar, sigmoid, silu)
+                                       linears, normal_init, rms_norm, rms_norm_block, scalar,
+                                       sigmoid, silu)
 
 NEG_INF = -1e30
 GATES = ("i", "f", "z", "o")
@@ -67,9 +79,10 @@ class MLSTM(nn.Module):
 
     def _qkvif(self, x: torch.Tensor, history: torch.Tensor | None = None):
         """x (B, T, D) -> q, k (B, T, H, dh), v (B, T, H, 2d/H) in x's
-        dtype, log_i and log_f (B, T, H) float32, the conv's history."""
+        dtype, log_i and log_f (B, T, H) float32, the conv's history, and
+        the output gate's product ``w_gate(x)``."""
         cfg = self.cfg
-        up = self.w_up(x)  # (B, T, 2d): the v path, before the conv
+        up, gate = linears(x, (self.w_up, self.w_gate))  # up (B, T, 2d): v, before the conv
         conv, hist = causal_conv(up, self.conv_w, self.conv_b, history)
         conv = silu(conv)
         q = self.wq(conv) * scalar(cfg.head_dim ** -0.5, x.dtype)
@@ -78,17 +91,17 @@ class MLSTM(nn.Module):
         v = up.reshape(b, t, cfg.n_heads, -1)
         log_i = self.w_i(conv, torch.float32)
         log_f = log_sigmoid(self.w_f(conv, torch.float32))
-        return q, k, v, log_i, log_f, hist
+        return q, k, v, log_i, log_f, hist, gate
 
-    def _out(self, x: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
+    def _out(self, gate: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
         hidden = rms_norm(hidden, self.norm.scale, self.cfg.norm_eps)
-        return self.w_out(hidden * silu(self.w_gate(x)))
+        return self.w_out(hidden * silu(gate))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The stabilized parallel form. x (B, T, D) -> (B, T, D); the
         (T, T) products are held as (B, H, T_s, T_u)."""
         b, t, d = x.shape
-        q, k, v, log_i, log_f, _ = self._qkvif(x)
+        q, k, v, log_i, log_f, _, gate = self._qkvif(x)
         cum_f = torch.cumsum(log_f, dim=1).transpose(1, 2)  # (B, H, T)
         # D[s, u] = cum_f[s] - cum_f[u] + log_i[u] for u <= s
         dmat = cum_f[..., :, None] - cum_f[..., None, :] + log_i.transpose(1, 2)[..., None, :]
@@ -102,13 +115,13 @@ class MLSTM(nn.Module):
         del scores, dexp
         norm = torch.maximum(torch.abs(sd.sum(dim=-1)), torch.exp(-m[..., 0]))  # (B, H, T)
         hidden = torch.einsum("bhsu,buhv->bshv", sd, v.float()) / norm.transpose(1, 2)[..., None]
-        return self._out(x, hidden.reshape(b, t, 2 * d).to(x.dtype))
+        return self._out(gate, hidden.reshape(b, t, 2 * d).to(x.dtype))
 
     def decode(self, x: torch.Tensor, state: dict):
         """One token: x (B, 1, D), ``state`` from ``make_mlstm_state``,
         updated in place."""
         b = x.shape[0]
-        q, k, v, log_i, log_f, hist = self._qkvif(x, state["conv"])
+        q, k, v, log_i, log_f, hist, gate = self._qkvif(x, state["conv"])
         qf, kf, vf = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()
         log_i, log_f = log_i[:, 0], log_f[:, 0]  # (B, H)
         m_new = torch.maximum(log_f + state["m"], log_i)
@@ -121,7 +134,7 @@ class MLSTM(nn.Module):
         den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", qf, n)), torch.exp(-m_new))
         hidden = (num / den[..., None]).reshape(b, 1, -1).to(x.dtype)
         state.update(c=c, n=n, m=m_new, conv=hist)
-        return self._out(x, hidden), state
+        return self._out(gate, hidden), state
 
 
 def make_mlstm_state(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None) -> dict:
@@ -158,6 +171,7 @@ class SLSTM(nn.Module):
         self.w_f.b.data.fill_(3.0)
         self.norm = RMSNorm(d, cfg.norm_eps, device=device)
         self.ffn = FFN(d, int(round(4 * d * 4 / 3 / 64)) * 64, "gelu", **kw)
+        self.shard = None  # a Shard under an executed serving layout
 
     def _recurrent(self) -> torch.Tensor:
         """The four recurrent matrices side by side, (H, dh, 4 dh) float32."""
@@ -182,7 +196,12 @@ class SLSTM(nn.Module):
     def _post(self, hs: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """hs (B, T, H, dh) -> norm, then out + GeGLU FFN(out)."""
         b, t = hs.shape[:2]
-        out = rms_norm(hs.reshape(b, t, -1).to(dtype), self.norm.scale, self.cfg.norm_eps)
+        hs = hs.reshape(b, t, -1).to(dtype)
+        if self.shard is not None and self.shard.kind != "prefill":  # this rank's d_model block
+            out = rms_norm_block(hs, self.norm.scale, self.cfg.norm_eps,
+                                 self.shard.embed.block(self.cfg.d_model))
+        else:
+            out = rms_norm(hs, self.norm.scale, self.cfg.norm_eps)
         return out + self.ffn(out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -203,7 +222,8 @@ class SLSTM(nn.Module):
     def decode(self, x: torch.Tensor, state: dict):
         """One token: x (B, 1, D), ``state`` from ``make_slstm_state``,
         updated in place."""
-        gates = tuple(getattr(self, f"w_{g}")(x, torch.float32)[:, 0] for g in GATES)
+        gates = tuple(g[:, 0] for g in linears(x, [getattr(self, f"w_{g}") for g in GATES],
+                                                torch.float32))
         c, n, h, m = self._step(self._recurrent(), (state["c"], state["n"], state["h"],
                                                     state["m"]), gates)
         state.update(c=c, n=n, h=h, m=m)

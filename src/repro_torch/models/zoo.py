@@ -15,12 +15,21 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models.transformer import Transformer
+from repro_torch.distributed.sharding import NULL_LAYOUT, Layout
+from repro_torch.models.convert import draw_rank_params
+from repro_torch.models.transformer import StoredParams, Transformer
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Transformer:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None, *,
+                layout: Layout = NULL_LAYOUT) -> Transformer | StoredParams:
     """A randomly initialised model from ``generator`` on ``device``
-    (``None``: the card)."""
+    (``None``: the card; on a mesh, the mesh's device).  With a serving
+    layout on a live mesh, this rank's parameters of that same model
+    (``models.convert.draw_rank_params``: a ``Transformer`` of compute
+    blocks under ``decode`` / ``long``, ``StoredParams`` under
+    ``prefill``), drawn a leaf at a time."""
+    if layout.mesh is not None and layout.kind is not None:
+        return draw_rank_params(cfg, generator, layout, device)
     return Transformer(cfg, generator=generator, device=device)
 
 

@@ -19,6 +19,14 @@ one device-to-host copy (the two stacked into one tensor), and the stats
 handed to callers are host tensors, as the reference's are host arrays.
 ``generate`` keeps its tokens on the model's device and copies them to
 the host once, at the end.
+
+Under a ``decode`` or ``long`` layout on a live mesh (``layout=``, one
+process a rank, ``params`` the rank's model from
+``models.zoo.init_params(cfg, gen, layout=layout)``), every rank
+retrieves with its own engine (search is deterministic, so every rank
+builds the same prompts), decodes its rows (``act_batch``) through the
+executed layout, and the rows' tokens are all-gathered over the batch
+axis at the end, so every rank returns every request's tokens.
 """
 from __future__ import annotations
 
@@ -31,7 +39,10 @@ from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import GateANNEngine
 from repro_torch.core.search import SearchConfig, SearchStats
+from repro_torch.distributed.sharding import NULL_LAYOUT, Layout
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.layers import refuse_w8a16
+from repro_torch.serve.prefill import serving_shard
 from repro_torch.store.adaptive import AdaptiveRecordCache
 
 
@@ -55,9 +66,13 @@ def _stack_params(params: list, device: torch.device) -> torch.Tensor:
 @dataclasses.dataclass
 class RAGServer:
     """``cfg`` / ``params``: the generator's config and the port's
-    ``Transformer`` for it (the reference's ``params`` is a parameter tree;
-    its ``layout`` has no counterpart on one device).  A retrieval-only
-    server passes ``cfg=None, params=None``."""
+    ``Transformer`` for it (the reference's ``params`` is a parameter
+    tree).  A retrieval-only server passes ``cfg=None, params=None``.
+    ``layout`` (keyword only, after the reference's other fields, which
+    callers pass positionally without it): the layout ``generate``
+    decodes under, ``NULL_LAYOUT`` (one device) by default, or a
+    ``decode`` / ``long`` layout on a live mesh with ``params`` the rank's
+    model (the module docstring)."""
 
     engine: GateANNEngine
     cfg: ModelConfig | None
@@ -92,6 +107,7 @@ class RAGServer:
     reconcile_drift: int = 0
     # hit rate of the most recent batch — shows cache adaptation over time
     last_batch_hit_rate: float = 0.0
+    layout: Layout = dataclasses.field(default=NULL_LAYOUT, kw_only=True)
 
     def _account(self, stats):
         t = obs.stats.stats_totals(stats)
@@ -241,10 +257,18 @@ class RAGServer:
         if self.params is None or self.params.cfg != self.cfg:
             raise ValueError("generate needs params: the Transformer of cfg")
         model = self.params
+        shard = serving_shard(self.layout, "RAGServer.generate", ("decode", "long"))
+        if shard is not None:
+            refuse_w8a16(model, "RAGServer.generate")
+            if model.shard != shard:
+                raise ValueError("generate: params does not hold this rank's blocks under the "
+                                 "server's layout (models.zoo.init_params(..., layout=layout))")
         prompts = torch.from_numpy(self.build_prompts(requests, ids)).to(model.device)
         b, p_len = prompts.shape
         total = p_len + max_new_tokens
         caches = model.init_caches(b, total, torch.float32)
+        if shard is not None:  # this rank's rows
+            prompts = prompts[shard.batch.block(b)]
         tok = prompts[:, :1]
         out = []
         for t in range(total - 1):
@@ -257,4 +281,7 @@ class RAGServer:
         if not out:  # the reference's np.stack of no steps raises ValueError
             raise ValueError(f"generate: max_new_tokens={max_new_tokens} leaves no token to "
                              "decode (need at least one array to stack)")
-        return torch.stack(out, dim=1).cpu().numpy(), stats
+        toks = torch.stack(out, dim=1)
+        if shard is not None:  # every rank's rows
+            toks = shard.batch.all_gather(toks, 0)
+        return toks.cpu().numpy(), stats

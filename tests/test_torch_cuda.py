@@ -1130,3 +1130,58 @@ def test_card_variant_decode_equals_cpu(cuda, variant, monkeypatch):
                                    atol=1e-5 * max(1.0, float(w["logits"].abs().max())))
         assert torch.equal(g["next_tokens"].cpu(), w["next_tokens"]), (variant, pos)
         t_cpu, t_card = w["next_tokens"], g["next_tokens"]
+
+
+def dist_softmax_rank(mesh, kind: str) -> dict:
+    """One rank of a one-layer gemma3-4b smoke model (its global attention
+    layer) decoding 12 steps under ``kind`` on the card: its rows' logits."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import make_layout
+    from repro_torch.models import zoo
+    from repro_torch.serve import make_serve_step
+
+    cfg = dataclasses.replace(get_smoke_config("gemma3-4b"), dtype="float32", n_layers=1,
+                              attn_windows=(None,))
+    layout = make_layout(kind, mesh)
+    model = zoo.init_params(cfg, torch.Generator(mesh.device).manual_seed(0), layout=layout)
+    b = 4 if kind == "decode" else 1
+    rows = model.shard.batch.block(b)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (b, 12)).astype(np.int32)[rows]
+    step = make_serve_step(cfg, layout=layout)
+    caches = model.init_caches(b, 13, torch.float32)
+    out = []
+    for pos in range(12):
+        out.append(step(model, caches, torch.from_numpy(toks[:, pos:pos + 1]).to(mesh.device),
+                        pos)["logits"].cpu())
+    return {"rows": (rows.start, rows.stop), "logits": torch.stack(out).numpy()}
+
+
+@pytest.mark.parametrize("kind,shape", [("decode", (1, 4)), ("long", (2, 2))])
+def test_card_distributed_softmax_decode_equals_cpu(cuda, kind, shape):
+    """The flash-decode softmax over a sequence-sharded KV cache (13 slots
+    over 4 ranks: blocks of 4, the last of 1 and 3 empty slots) at one
+    layer, 4 gloo ranks on the card, against one device's decode on the
+    CPU with the same weights (drawn on the card, leaf by leaf on the
+    ranks): logits within 1e-5 of their largest magnitude."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import spawn_local
+    from repro_torch.models import zoo
+    from repro_torch.serve import make_serve_step
+
+    ranks = spawn_local(dist_softmax_rank, shape, backend="gloo", device=str(cuda),
+                        timeout_s=300, args=(kind,))
+    cfg = dataclasses.replace(get_smoke_config("gemma3-4b"), dtype="float32", n_layers=1,
+                              attn_windows=(None,))
+    model = zoo.init_params(cfg, torch.Generator(cuda).manual_seed(0), device=cuda).to("cpu")
+    b = 4 if kind == "decode" else 1
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (b, 12)).astype(np.int32)
+    step, caches = make_serve_step(cfg), model.init_caches(b, 13, torch.float32)
+    want = np.stack([step(model, caches, toks[:, pos:pos + 1], pos)["logits"].numpy()
+                     for pos in range(12)])
+    for r in ranks:
+        got, w = r["logits"], want[:, slice(*r["rows"])]
+        np.testing.assert_allclose(got, w, rtol=1e-5, atol=1e-5 * max(1.0, float(np.abs(w).max())))

@@ -363,7 +363,12 @@ def test_checkpoint_restores_across_meshes_and_in_the_reference(results):
 
 
 def test_other_layouts_and_abstract_meshes_refuse_to_execute():
-    """Only the train layout executes on a mesh, and only on a live one."""
+    """The train step executes only the train layout, and only on a live
+    mesh; the serving steps execute their own layouts on a live mesh only
+    (an ``AbstractMesh`` plans, it joins no world), and w8a16 weights
+    under a mesh raise."""
+    from repro_torch.models.convert import shard_model
+    from repro_torch.models.layers import quantize_model
     from repro_torch.serve import make_prefill_step, make_serve_step
 
     cfg, hp = cfg_of("gemma3-4b"), hp_of("adamw")
@@ -373,10 +378,12 @@ def test_other_layouts_and_abstract_meshes_refuse_to_execute():
     for kind in ("prefill", "decode", "long"):
         with pytest.raises(NotImplementedError):
             make_train_step(cfg, hp, layout=make_layout(kind, mesh))
-        with pytest.raises(NotImplementedError):
-            make_prefill_step(cfg, layout=make_layout(kind, mesh))
-        with pytest.raises(NotImplementedError):
-            make_serve_step(cfg, layout=make_layout(kind, mesh))
+        step = make_prefill_step if kind == "prefill" else make_serve_step
+        with pytest.raises(ValueError, match="joins no world"):
+            step(cfg, layout=make_layout(kind, mesh))
+    model = make_train_state(cfg, hp, torch.Generator().manual_seed(0), device="cpu").params
+    with pytest.raises(NotImplementedError, match="w8a16"):
+        shard_model(quantize_model(model), make_layout("decode", mesh))
 
 
 def test_moe_aux_over_batch_shards_equals_the_whole_batch():

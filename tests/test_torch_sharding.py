@@ -254,5 +254,9 @@ def test_lshard_is_the_identity_and_named_sharding_blocks():
     assert sh.shard_shape((16, 3)) == (2, 3) and sh.full_shape((2, 3)) == (16, 3)
     half = NamedSharding(mesh, PartitionSpec(None, "model"))
     assert [half.owns(r) for r in range(8)] == [True] * 4 + [False] * 4
-    with pytest.raises(ValueError, match="evenly"):
-        sh.shard_shape((12, 3))
+    # a dimension that does not divide splits as XLA splits it: ceiling-sized
+    # blocks, the last ones short or empty, shard_shape the padded block
+    assert sh.shard_shape((12, 3)) == (2, 3)
+    uneven = [full[:12][sh.block((12, 3), r)] for r in range(8)]
+    assert [len(b) for b in uneven] == [2, 2, 2, 2, 2, 2, 0, 0]
+    assert torch.equal(torch.cat(uneven), full[:12])
