@@ -8,7 +8,9 @@ and the brute-force PQ scan — at SIFT1M scale through the hand-written
 CUDA kernels, serves retrieval-augmented generation with gemma3-4b at
 full width over that index, runs the MoE, RG-LRU and xLSTM layer kinds
 (recurrentgemma-9b, xlstm-350m, dbrx-132b) at full width, decodes with
-w8a16 weights and the int8 KV cache, trains (the reference's training
+w8a16 weights and the int8 KV cache (on one device and on a mesh), plans
+every kind of cell on the production meshes as one rank's traced step
+(the dry run), trains (the reference's training
 example on its config, and gemma3-4b at full width; that config
 ZeRO-sharded over gloo ranks sharing the card), and holds every kernel
 against its plain PyTorch version on the card.  Phases,
@@ -152,20 +154,27 @@ each printing its own lines:
      one device (== every rank's blocks bit for bit) and on a (1, 4) mesh
      (``shardings=``), 2 steps there within rtol 2e-4 of one device's;
      (d) per-rank bytes of the train state of gemma3-4b and
-     llama4-maverick on the production meshes, from shapes alone;
+     llama4-maverick on the production meshes, from specs alone
+     (``launch.dryrun.spec_bytes``);
   dist_serve. The serving layouts executed on a mesh: one ``spawn_local``
      of 4 gloo ranks sharing the card, run as (1, 4) and then (2, 2)
      (``Mesh.reshape``), each rank's parameters drawn a leaf at a time
-     from the one-device init's generator: gemma3-4b ``decode`` at full
-     width and depth on (1, 4) (B = 8, bf16 caches of 2,112 holding one
+     from the one-device init's generator: gemma3-4b (at full width, its
+     depth cut to 12 of 34 layers in the whole phase: a CUT, printed)
+     ``decode`` on (1, 4) (B = 8, bf16 caches of 2,112 holding one
      device's 64-token prompt, each rank its blocks of them, then 16
      greedy steps; a CUT, printed: the prompt is not teacher-forced on the
      mesh) and its float32 twin (a 4-token prompt, 4 greedy steps),
      ``RAGServer(..., layout=)`` ``generate`` in float32 over a
      20,000-vector engine (each rank its own, loaded from one file;
      prompts cut to 2 hits of 4 tokens and 4 tokens, printed), dbrx-132b (2 of 40 layers) and
-     xlstm-350m in float32 and recurrentgemma-9b in bf16 ``decode`` (16
-     steps each); then on (2, 2) gemma3-4b ``long`` (B = 1, LONG_500K's 524,288
+     xlstm-350m in float32 and recurrentgemma-9b (12 of 38 layers, a
+     CUT) in bf16 ``decode`` (16 steps each), gemma3-4b with w8a16 weights
+     at the lm_variants depth (12 layers) in float32 ``decode`` (a 2-token
+     prompt, 3 greedy steps, against the lm_variants phase's one-device
+     run within 1e-4 of the largest logit; the codes and scales a rank
+     holds beside the same weights in float32); then on (2, 2) gemma3-4b
+     ``long`` (B = 1, LONG_500K's 524,288
      slots filled with seeded K/V, 8 steps), gemma3-4b ``prefill`` (B = 8,
      T = 2,048, ZeRO-stored parameters gathered a layer at a time) and
      xlstm-350m ``prefill`` (B = 8, T = 512).  Each run replays the tokens
@@ -181,6 +190,20 @@ each printing its own lines:
      instrumented step and their bytes by kind, state bytes and peak
      memory a rank.  ``python3 chip_smoke.py --only dist_serve`` runs it
      alone with its references (no result line);
+  dryrun. ``launch.dryrun``: (a) in spawned children on the CPU, each on a
+     90 s deadline, cells of every kind planned on the meta device on
+     both production meshes (16 x 16, 2 x 16 x 16) in a fake world of
+     their size: train (xlstm-350m, ``dp_only``; its sequence cut to 16,
+     a CUT: the eager sLSTM scan is slow to trace), prefill, decode,
+     w8a16 decode and long, and the retrieve step in both modes (48
+     all-reduces of the reference's hop a step); (b) in another child at
+     once, rank 0 of 16 x 16 on the card in the same fake world, on
+     uninitialised blocks: gemma3-4b ``decode_32k`` (bf16 and w8a16),
+     ``prefill_32k``, ``long_500k`` and the retrieve step (gate), each
+     with its collectives equal to the meta plan's by kind, count and
+     bytes and its peak at least the plan's argument bytes (peak GiB
+     against the card's 80 GB, seconds: one rank, collectives skipped).
+     ``python3 chip_smoke.py --only dryrun`` runs it alone;
   6. the brute-force PQ scan: every code scored by ``pq.adc_lookup``,
      filtered, top-10 by two levels of ``kernels.ops.topk_merge``;
   7. card vs CPU on a 20,000-vector index in all five modes;
@@ -235,6 +258,7 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import pq_lookup as pqk  # noqa: E402
 from repro_torch.kernels import topk_merge as tkk  # noqa: E402
 from repro_torch.launch import AbstractMesh, abstract_production_mesh, spawn_local  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.checkpoint import CheckpointConfig, Checkpointer  # noqa: E402
 from repro_torch.checkpoint.checkpointer import flatten_with_paths  # noqa: E402
 from repro_torch.distributed.compression import (  # noqa: E402
@@ -359,8 +383,12 @@ DIST_SERVE_LONG = (8, LONG_500K.seq_len)
 # dbrx-132b and xlstm-350m decode in float32, where bf16 order noise neither
 # moves the MoE's routing nor is carried up by the sLSTM's exponential gates
 # past what tells a fault from noise (PERF.md)
-DIST_SERVE_KINDS = {"dbrx-132b": (2, "float32"), "recurrentgemma-9b": (None, None),
+DIST_SERVE_KINDS = {"dbrx-132b": (2, "float32"), "recurrentgemma-9b": (12, None),
                     "xlstm-350m": (None, "float32")}
+# the depth gemma3-4b runs at in the dist_serve phase (its layers the full model's
+# first), cut with recurrentgemma-9b's above so that the whole smoke, the dryrun
+# phase included, stays within its time (PERF.md)
+DIST_SERVE_GEMMA_DEPTH = 12
 DIST_SERVE_KINDS_DECODE = (8, 8, 9)
 DIST_SERVE_XLSTM_PREFILL = (8, 512)
 DIST_SERVE_RAG = dict(n=20_000, requests=8, k=2, passage=4, prompt=4, new=8)
@@ -369,6 +397,22 @@ DIST_SERVE_F32 = (8, 2, 3)  # gemma3-4b's float32 twin: B, prompt, new tokens
 # bar of the lm phases' (b) (the tests' 2e-5 is for the smoke configs' widths)
 DIST_SERVE_BAR = {"bfloat16": 3e-2, "float32": 1e-4}
 DIST_SERVE_CHUNK, DIST_SERVE_TIMEOUT_S = 4096, 600
+# gemma3-4b w8a16 decode on (1, 4) in float32 at the lm_variants depth: B, prompt,
+# new tokens (one device's run saved by the lm_variants phase)
+DIST_SERVE_W8 = (8, 2, 3)
+# the dryrun phase: (a) the cells planned on the meta device on each production
+# mesh (arch, shape, w8a16), in two children a mesh, the retrieval cell in both
+# modes beside them: xlstm-350m's train cell (dp_only) at a cut sequence (its
+# eager sLSTM scan costs about 0.4 s a step to trace on the CPU: PERF.md); (b)
+# the cells run on the card (16 x 16, rank 0); the deadline of each child
+DRYRUN_TRAIN_T = 16
+DRYRUN_META = (("xlstm-350m", "train_4k", False), ("gemma3-4b", "prefill_32k", False)), \
+              (("gemma3-4b", "decode_32k", False), ("gemma3-4b", "decode_32k", True),
+               ("gemma3-4b", "long_500k", False))
+DRYRUN_META_3D_PREFILL = "internvl2-2b"  # the 2 x 16 x 16 mesh's prefill cell (the faster trace)
+DRYRUN_CARD = (("gemma3-4b", "decode_32k", False), ("gemma3-4b", "decode_32k", True),
+               ("gemma3-4b", "prefill_32k", False), ("gemma3-4b", "long_500k", False))
+DRYRUN_TIMEOUT_S, CARD_BYTES = 90, 80e9
 REPO = Path(__file__).resolve().parent
 
 
@@ -2098,7 +2142,8 @@ def lm_phase(eng, q, targets, card: str, cap: Capture, ref_dir: str) -> dict:
     out["prefill"], batch = lm_prefill_run("lm", model, cfg, n_params, *LM_PREFILL, card)
     out["decode"] = lm_decode_run("lm", model, cfg, n_params, batch["tokens"], card)
     out["generate"] = lm_generate("lm", "rag_generate", eng, q, targets, cfg, card, cap)
-    out.update(dist_serve_refs_gemma(model, cfg, ref_dir, card))
+    with first_layers(model, DIST_SERVE_GEMMA_DEPTH):
+        out.update(dist_serve_refs_gemma(model, model.cfg, ref_dir, card))
     del model
     torch.cuda.empty_cache()
 
@@ -2489,9 +2534,9 @@ def int8_kv_card_vs_cpu(cut, dev, card: str, t: int, w8: bool, name: str) -> dic
             "codes_differing": flips}
 
 
-def lm_variants_phase(card: str) -> dict:
+def lm_variants_phase(card: str, ref_dir: str) -> dict:
     """The serving variants at full width (the module docstring's
-    lm_variants step)."""
+    lm_variants step), and the dist_serve phase's w8a16 reference."""
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2505,6 +2550,7 @@ def lm_variants_phase(card: str) -> dict:
     out = {name: variant_decode(name, w8, kv8, cfg, n_params, card)
            for name, (w8, kv8) in LM_VARIANTS.items()}
     out["checks"] = variant_checks(full, card)
+    out.update(dist_serve_refs_w8a16(ref_dir, card))
     out["peak_allocated_gb"] = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
     out["phase_s"] = time.perf_counter() - t_phase
     log("lm_variants", f"phase {out['phase_s']:.1f} s; peak device memory allocated "
@@ -2836,25 +2882,6 @@ def losses_close(got: list, want: list, what: str) -> float:
     return rel
 
 
-def plan_bytes(arch: str, multi_pod: bool) -> dict:
-    """(d) Per-rank bytes of the float32 masters and AdamW moments under
-    ``make_train_state_specs`` on a production mesh, from shapes on the
-    meta device: nothing is allocated."""
-    cfg = get_config(arch)
-    meta = Transformer(cfg, device="meta")
-    leaves = reference_leaves(meta)
-    mesh = abstract_production_mesh(multi_pod=multi_pod)
-    specs = make_train_state_specs(leaves, reference_axes(meta), make_layout("train", mesh,
-                                   multi_pod=multi_pod), "adamw")
-    per_rank = 0
-    for spec_tree in (specs.params, specs.opt.m, specs.opt.v):
-        for k, spec in spec_tree.items():
-            per_rank += 4 * math.prod(NamedSharding(mesh, spec).shard_shape(tuple(leaves[k].shape)))
-    whole = 12 * sum(t.numel() for t in leaves.values())
-    return {"mesh": list(mesh.shape), "params": whole // 12, "bytes_per_rank": per_rank,
-            "bytes_whole": whole, "ranks": math.prod(mesh.shape)}
-
-
 def dist_train_phase(tmp: str, card: str) -> dict:
     """Sharded training on the one card (the module docstring's dist_train)."""
     t_phase = time.perf_counter()
@@ -2986,16 +3013,23 @@ def dist_train_phase(tmp: str, card: str) -> dict:
         f"device == every rank's blocks bit for bit; restored on a (1, 4) mesh (shardings=): "
         f"{DIST_TRAIN_RESUMED_STEPS} steps within {rel['gloo_1x4_restored']:.2e} relative of one "
         f"device's {DIST_TRAIN_RESUMED_STEPS} steps from the same checkpoint on {card}")
-    # (d) plans at full width, shapes only
+    # (d) plans at full width, shapes only: launch.dryrun's argument bytes of the state
     out["plans"] = {}
     for arch in DIST_TRAIN_PLAN_ARCHS:
         for mp in (False, True):
-            p = plan_bytes(arch, mp)
+            mesh = abstract_production_mesh(multi_pod=mp)
+            items = dryrun.train_state_items(get_config(arch), make_layout("train", mesh,
+                                                                           multi_pod=mp), "adamw")
+            whole = dryrun.spec_bytes(AbstractMesh(mesh.axis_names, (1,) * len(mesh.shape)), items)
+            p = {"mesh": list(mesh.shape), "ranks": math.prod(mesh.shape),
+                 "params": sum(math.prod(sh) for sh, dt, _ in items if dt.is_floating_point) // 3,
+                 "bytes_per_rank": int(dryrun.spec_bytes(mesh, items).max()),
+                 "bytes_whole": int(whole[0])}
             out["plans"][f"{arch} {'x'.join(map(str, p['mesh']))}"] = p
             log("dist_train", f"(d) {arch} ({p['params']:,} params) train state (float32 masters "
                 f"+ AdamW moments) under make_train_state_specs on {p['mesh']}: "
                 f"{p['bytes_per_rank'] / 1e9:.2f} GB a rank of {p['bytes_whole'] / 1e9:.1f} GB "
-                f"({p['ranks']} ranks; shapes on the meta device, nothing allocated; the step also "
+                f"({p['ranks']} ranks; launch.dryrun.spec_bytes, from specs alone; the step also "
                 f"holds the gathered compute tree, {p['params'] * 4 / 1e9:.1f} GB, and gradients)")
     out["phase_s"] = time.perf_counter() - t_phase
     log("dist_train", f"phase {out['phase_s']:.1f} s (spawn to join: "
@@ -3201,6 +3235,23 @@ def serve_generate_ref(model, cfg, ref_dir: str) -> dict:
             "bar": bar, "scale": scale}
 
 
+@contextlib.contextmanager
+def first_layers(model, n: int):
+    """``model`` cut to its first ``n`` layers, its config too, while the
+    block runs: the model of ``n`` layers drawn from the same seed (the
+    layers are drawn after the embeddings)."""
+    layers, cfg = model.layers, model.cfg
+    if n >= len(layers):
+        yield model
+        return
+    model.layers = torch.nn.ModuleList(list(layers)[:n])
+    model.cfg = dataclasses.replace(cfg, n_layers=n)
+    try:
+        yield model
+    finally:
+        model.layers, model.cfg = layers, cfg
+
+
 def dist_serve_refs_gemma(model, cfg, ref_dir: str, card: str) -> dict:
     """The lm phase's part of the dist_serve phase: one device's gemma3-4b
     decode, long and prefill references and ``generate`` over the phase's
@@ -3281,14 +3332,15 @@ def dist_serve_refs_kind(model, cfg, ref_dir: str, card: str) -> dict:
     activation dtype DIST_SERVE_KINDS gives (the same weights)."""
     t0 = time.perf_counter()
     b, prompt, new = DIST_SERVE_KINDS_DECODE
-    name, own = cfg.name, model.cfg
-    model.cfg = cfg = serve_kind_cfg(name)
-    try:
-        torch.save(serve_decode_ref(model, cfg, b, prompt, new, prompt + new, seed=22,
-                                    cache_dtype=model.dtype),
-                   os.path.join(ref_dir, f"{name}_decode.pt"))
-    finally:
-        model.cfg = own
+    name, own, cfg = cfg.name, model.cfg, serve_kind_cfg(cfg.name)
+    with first_layers(model, cfg.n_layers):
+        cut, model.cfg = model.cfg, cfg
+        try:
+            torch.save(serve_decode_ref(model, cfg, b, prompt, new, prompt + new, seed=22,
+                                        cache_dtype=model.dtype),
+                       os.path.join(ref_dir, f"{name}_decode.pt"))
+        finally:
+            model.cfg = cut
     if name == "xlstm-350m":
         pb, pt = DIST_SERVE_XLSTM_PREFILL
         batch = batch_at_step(TokenStreamConfig(own.vocab_size, pt, pb, seed=24), 0)
@@ -3367,13 +3419,15 @@ def logits_held(got: torch.Tensor, ref: dict, rows: slice, what: str) -> dict:
             "close_and_differ": int((~agree & ~clear.cpu()).sum())}
 
 
-def serve_replay(mesh, kind: str, cfg, ref: dict, length: int, model=None, fill=None) -> dict:
+def serve_replay(mesh, kind: str, cfg, ref: dict, length: int, model=None, fill=None,
+                 w8a16: bool = False) -> dict:
     """One rank's decode under ``kind``: the tokens one device was fed,
     replayed on this rank's rows into caches of ``length`` (filled by
     ``fill(caches, shard)`` first when given), each step timed on the host
     clock after a sync; its greedy steps' logits and tokens held to one
     device's (``logits_held``); the MoE's dropped pairs each step; then
-    the last step again with its collectives metered.  Returns the
+    the last step again with its collectives metered.  With ``w8a16`` the
+    rank's linears are drawn whole, quantised, then cut.  Returns the
     readings and the model (for the next run on the same layout)."""
     dev = mesh.device
     layout = make_layout(kind, mesh)
@@ -3381,7 +3435,8 @@ def serve_replay(mesh, kind: str, cfg, ref: dict, length: int, model=None, fill=
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     if model is None:
-        model = zoo.init_params(cfg, torch.Generator(dev).manual_seed(0), layout=layout)
+        model = zoo.init_params(cfg, torch.Generator(dev).manual_seed(0), layout=layout,
+                                w8a16=w8a16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     fed = ref["fed"]
@@ -3532,7 +3587,7 @@ def dist_serve_rank(mesh, ref_dir: str) -> dict:
                 + ", ".join(f"{k} {r[k]:.4g}" for k in ("ms_step", "s", "max_abs_err", "bar",
                                                           "logits_max_abs_err", "logits_bar")
                             if k in r))
-    gemma = get_config(LM_ARCH)
+    gemma = dataclasses.replace(get_config(LM_ARCH), n_layers=DIST_SERVE_GEMMA_DEPTH)
     b, prompt, new, length = DIST_SERVE_DECODE
     out["gemma3-4b decode"], model = serve_replay(mesh, "decode", gemma,
                                                   load("gemma3-4b_decode.pt"), length)
@@ -3545,6 +3600,15 @@ def dist_serve_rank(mesh, ref_dir: str) -> dict:
     out["generate"] = serve_generate(mesh, f32, model, ref_dir)
     done("generate")
     model.cfg = gemma
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # w8a16 weights under the decode layout, float32, at the lm_variants depth
+    w8 = dataclasses.replace(gemma, n_layers=LM_VARIANTS_DEPTH, dtype="float32")
+    out["gemma3-4b w8a16 decode float32"], model = serve_replay(
+        mesh, "decode", w8, load("gemma3-4b_w8a16_decode_f32.pt"), length, w8a16=True)
+    out["gemma3-4b w8a16 decode float32"].update(w8_held(model))
+    done("gemma3-4b w8a16 decode float32")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3582,6 +3646,10 @@ def dist_serve_phase(ref_dir: str, card: str, cap: Capture) -> dict:
     t_phase = time.perf_counter()
     b, prompt, new, length = DIST_SERVE_DECODE
     rag = DIST_SERVE_RAG
+    log("dist_serve", f"CUT: the phase runs gemma3-4b at full width with its depth cut from "
+        f"{get_config(LM_ARCH).n_layers} to {DIST_SERVE_GEMMA_DEPTH} layers, and "
+        f"recurrentgemma-9b's decode from {get_config('recurrentgemma-9b').n_layers} to "
+        f"{DIST_SERVE_KINDS['recurrentgemma-9b'][0]}, for the whole smoke's time (PERF.md)")
     log("dist_serve", f"CUT: gemma3-4b decode's {prompt}-token prompt is teacher-forced on one "
         f"device and each rank starts from its blocks of those caches (cache_blocks); the {new} "
         "greedy steps run sharded (each step costs about 200 collectives, 6-8 ms each with 4 "
@@ -3635,6 +3703,15 @@ def dist_serve_phase(ref_dir: str, card: str, cap: Capture) -> dict:
             f"{max(r['init_s'] for r in rows):.1f} s"
             + (f"; MoE drops {json.dumps(r0['drops'])} == one device's" if "drops" in r0 else "")
             + f" on {card}")
+    w8 = [r["gemma3-4b w8a16 decode float32"] for r in ranks]
+    log("dist_serve", f"gemma3-4b w8a16 decode on (1, 4) ({LM_VARIANTS_DEPTH} layers, float32, "
+        f"against the lm_variants phase's one-device w8a16 run): a rank holds "
+        f"{w8[0]['codes_bytes'] / 1e9:.3f} GB of int8 codes and {w8[0]['scales_bytes'] / 1e6:.3f} MB "
+        f"of float32 scales, {(w8[0]['codes_bytes'] + w8[0]['scales_bytes']) / w8[0]['float32_bytes']:.3f} "
+        f"of the same weights in float32 ({w8[0]['float32_bytes'] / 1e9:.3f} GB); "
+        f"{max(r['ms_step'] for r in w8):.1f} ms a step; collectives a step "
+        f"{json.dumps(w8[0]['collective_calls'])}, bytes {json.dumps(w8[0]['collective_bytes'])} "
+        f"on {card}")
     g = ranks[0]["generate"]
     runs["generate"] = {"ranks": [r["generate"] for r in ranks], "launches": cap.launches["dist_serve_generate"]}
     log("dist_serve", f"RAGServer(..., layout=decode) on (1, 4), float32 activations, "
@@ -3653,13 +3730,46 @@ def dist_serve_phase(ref_dir: str, card: str, cap: Capture) -> dict:
     return out
 
 
+def w8_held(model) -> dict:
+    """A rank's w8a16 linears: its code and scale bytes (a stacked leaf's
+    rows of scales counted once) beside the same weights in float32."""
+    codes, scales, seen = 0, 0, set()
+    for m in model.modules():
+        if isinstance(m, Linear) and m.w is None:
+            codes += m.w_q.numel()
+            if id(m.w_s) not in seen:
+                seen.add(id(m.w_s))
+                scales += m.w_s.numel() * m.w_s.element_size()
+    return {"codes_bytes": codes, "scales_bytes": scales, "float32_bytes": 4 * codes}
+
+
+def dist_serve_refs_w8a16(ref_dir: str, card: str) -> dict:
+    """The lm_variants phase's part of the dist_serve phase: one device's
+    float32 decode of gemma3-4b at the lm_variants depth with w8a16
+    weights (``init_params(..., w8a16=True)``), saved for the ranks."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_VARIANTS_DEPTH, dtype="float32")
+    model = zoo.init_params(cfg, torch.Generator("cuda").manual_seed(0), device="cuda", w8a16=True)
+    b, prompt, new = DIST_SERVE_W8
+    torch.save(serve_decode_ref(model, cfg, b, prompt, new, DIST_SERVE_DECODE[3], seed=29,
+                                cache_dtype=torch.float32),
+               os.path.join(ref_dir, "gemma3-4b_w8a16_decode_f32.pt"))
+    del model
+    torch.cuda.empty_cache()
+    s = time.perf_counter() - t0
+    log("lm_variants", f"dist_serve reference: {cfg.name} w8a16 at {cfg.n_layers} layers, float32, "
+        f"decode B={b} {prompt}+{new} on one device, saved in {s:.1f} s on {card}")
+    return {"dist_serve_ref_s": s}
+
+
 def dist_serve_references(ref_dir: str, card: str) -> None:
     """The dist_serve phase's one-device references without the lm and
     lm_kinds phases (the phase run alone): each model drawn, its
     references saved, freed."""
     dev = torch.device("cuda")
-    model = zoo.init_params(get_config(LM_ARCH), torch.Generator("cuda").manual_seed(0), device=dev)
-    dist_serve_refs_gemma(model, get_config(LM_ARCH), ref_dir, card)
+    gemma = dataclasses.replace(get_config(LM_ARCH), n_layers=DIST_SERVE_GEMMA_DEPTH)
+    model = zoo.init_params(gemma, torch.Generator("cuda").manual_seed(0), device=dev)
+    dist_serve_refs_gemma(model, gemma, ref_dir, card)
     del model
     torch.cuda.empty_cache()
     for arch, (depth, _) in DIST_SERVE_KINDS.items():
@@ -3670,6 +3780,92 @@ def dist_serve_references(ref_dir: str, card: str) -> None:
         dist_serve_refs_kind(model, cfg, ref_dir, card)
         del model
         torch.cuda.empty_cache()
+    dist_serve_refs_w8a16(ref_dir, card)
+
+
+# ------------------------------------------------------------- the dryrun phase
+def dryrun_cells(cells: tuple, multi_pod: bool, device: str, retrieval: tuple) -> dict:
+    """In a spawned child (a fake world of the production mesh's size, this
+    process rank 0): each cell's ``launch.dryrun.plan_cell`` report on
+    ``device``, then ``plan_retrieval`` in each of ``retrieval``'s
+    modes."""
+    torch.set_num_threads(2)
+    out = {}
+    for arch, shape, w8 in cells:
+        if shape == "train_4k":  # the CUT of DRYRUN_TRAIN_T
+            shape = dataclasses.replace(TRAIN_4K, name=f"train_4k_t{DRYRUN_TRAIN_T}",
+                                        seq_len=DRYRUN_TRAIN_T)
+        rep = dryrun.plan_cell(arch, shape, multi_pod=multi_pod, device=device, w8a16=w8)
+        out[f"{arch} {rep['shape']}" + (" w8a16" if w8 else "")] = rep
+    for mode in retrieval:
+        out[f"retrieval {mode}"] = dryrun.plan_retrieval(multi_pod=multi_pod, mode=mode,
+                                                         device=device)
+    return out
+
+
+def dryrun_phase(card: str) -> dict:
+    """``launch.dryrun``: (a) cells of every kind planned on the meta
+    device on both production meshes, (b) one rank of gemma3-4b's serving
+    cells and the retrieval cell run on the card in the same fake world,
+    each held to its meta plan: the same collectives by kind, count and
+    bytes, and a peak at least the plan's argument bytes.  Every child
+    runs at once, each on its deadline."""
+    import concurrent.futures
+
+    t_phase = time.perf_counter()
+    log("dryrun", f"CUT: xlstm-350m's train_4k cell is planned at T = {DRYRUN_TRAIN_T} (global "
+        f"batch 256 kept): its eager sLSTM scan costs about 0.4 s a step to trace on the CPU "
+        f"(the full cell: python -m repro_torch.launch.dryrun; PERF.md)")
+    first, second = DRYRUN_META
+    first_3d = (first[0], (DRYRUN_META_3D_PREFILL,) + first[1][1:])
+    jobs = [("16x16", (first, False, "meta", ())), ("16x16", (second, False, "meta", ("gate", "post"))),
+            ("2x16x16", (first_3d, True, "meta", ())),
+            ("2x16x16", (second, True, "meta", ("gate", "post"))),
+            ("card", (DRYRUN_CARD, False, "cuda", ("gate",)))]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futs = [(k, pool.submit(dryrun.in_child, dryrun_cells, *v, timeout_s=DRYRUN_TIMEOUT_S))
+                for k, v in jobs]
+        got: dict = {}
+        for k, f in futs:
+            got.setdefault(k, {}).update(f.result())
+    wall = time.perf_counter() - t_phase
+    for mesh in ("16x16", "2x16x16"):
+        for name, r in got[mesh].items():
+            coll = {k: f"{r['collective_counts'][k]} x / {v / 1e6:.3f} MB"
+                    for k, v in r["collective_bytes_per_device"].items()}
+            log("dryrun", f"(a) {name} on {mesh} ({r.get('layout', 'retrieve')}"
+                f"{' ' + r['variant'] if r.get('variant', 'default') != 'default' else ''}, meta): "
+                f"arguments {r['argument_size_in_bytes'] / 2**30:.3f} GiB a rank (largest; "
+                f"smallest {r['argument_size_in_bytes_min'] / 2**30:.3f}), "
+                f"{r['flops_per_device']:.4g} flops, {r['hbm_bytes_per_device'] / 1e9:.4g} GB unfused "
+                f"HBM bytes, collectives {json.dumps(coll)}; traced in {r['trace_s']:.1f} s")
+    b, w, d = 256 // 16, 8, 128 + 96  # a hop's fetch: (rows, W, D + R) float32 over 16 ranks
+    for mesh, rows in (("16x16", b), ("2x16x16", b // 2)):
+        r = got[mesh]["retrieval gate"]
+        want = 48 * 2 * rows * w * d * 4 * 15 / 16
+        require(r["collective_counts"] == {"all-reduce": 48} and r["collective_bytes_total"] == want,
+                f"dryrun (a) retrieval on {mesh}: {r['collective_counts']} "
+                f"{r['collective_bytes_total']} (48 all-reduces of {want / 48:.0f} B expected)")
+    for name, c in got["card"].items():
+        m = got["16x16"][name]
+        require(c["collective_counts"] == m["collective_counts"]
+                and c["collective_bytes_per_device"] == m["collective_bytes_per_device"],
+                f"dryrun (b) {name}: the card's collectives {c['collective_counts']} differ from "
+                f"the meta plan's {m['collective_counts']}")
+        require(c["peak_bytes"] >= c["argument_size_in_bytes_rank"] == m["argument_size_in_bytes_rank"],
+                f"dryrun (b) {name}: peak {c['peak_bytes']} below the plan's argument bytes "
+                f"{c['argument_size_in_bytes_rank']}")
+        log("dryrun", f"(b) {name} rank 0 of 16 x 16 on the card: peak {c['peak_bytes'] / 2**30:.2f} "
+            f"GiB of the card's {CARD_BYTES / 1e9:.0f} GB ({c['peak_bytes'] / CARD_BYTES:.1%}; the "
+            f"plan's arguments {c['argument_size_in_bytes_rank'] / 2**30:.2f} GiB), step "
+            f"{c['step_s']:.2f} s ({c['step_note']}); collectives == the meta plan's "
+            f"{json.dumps(c['collective_counts'])} on {card}")
+    out = {"meta": {k: got[k] for k in ("16x16", "2x16x16")}, "card": got["card"],
+           "phase_s": time.perf_counter() - t_phase, "children_wall_s": wall}
+    log("dryrun", f"phase {out['phase_s']:.1f} s ({len(jobs)} children at once, each on a "
+        f"{DRYRUN_TIMEOUT_S} s deadline) on {card}")
+    print(json.dumps({"dryrun": out, "card": card}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------- phase 6
@@ -4081,7 +4277,7 @@ def kernel_line(cap: Capture) -> list[dict]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="index size (SIFT1M: 1,000,000)")
-    ap.add_argument("--only", choices=("dist_serve",),
+    ap.add_argument("--only", choices=("dist_serve", "dryrun"),
                     help="run one phase alone, its one-device references included (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4109,6 +4305,10 @@ def main(argv=None) -> int:
     _build.build_all()
     log("kernels", f"built {', '.join(_build.SOURCES)} for sm_90a in {time.perf_counter() - t0:.1f} s")
     watch_plain_merges()
+    if args.only == "dryrun":
+        dryrun_phase(card)
+        log("done", f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
     if args.only == "dist_serve":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=index_dir()) as tmp:
             t0 = time.perf_counter()
@@ -4162,10 +4362,11 @@ def main(argv=None) -> int:
         os.makedirs(ref_dir)
         lm_phase(eng, q, targets, card, cap, ref_dir)
         lm_kinds_phase(eng, q, targets, card, cap, ref_dir)
-        lm_variants_phase(card)
+        lm_variants_phase(card, ref_dir)
         train_phase(tmp, card)
         dist_train_phase(tmp, card)
         dist_serve_phase(ref_dir, card, cap)
+        dryrun_phase(card)
         scan_phase(eng, q, targets, gt, card, cap)
         del eng, mem_runs
         torch.cuda.empty_cache()

@@ -404,12 +404,12 @@ ONE = Axis(group=None, index=0, size=1)
 
 @dataclasses.dataclass(frozen=True)
 class Shard:
-    """How a rank executes a serving layout on a live 2-D mesh (``data``,
-    ``model``): ``kind`` (``prefill``, ``decode`` or ``long``), ``model``
+    """How a rank executes a serving layout on a live mesh (``data``,
+    ``model``, or ``pod``, ``data``, ``model``): ``kind`` (``prefill``, ``decode`` or ``long``), ``model``
     the mesh's ``model`` axis, ``batch`` the axes the rows split
     over (``act_batch``), ``seq`` those the prefill's sequence splits
     over (``act_seq``), ``cache`` those the KV cache's sequence splits
-    over (``cache_seq``: ``model`` in decode, the world in ``data``-major
+    over (``cache_seq``: ``model`` in decode, the world in row-major
     order in ``long``), ``embed`` those d_model splits over (the
     parameters' ``embed``), ``experts`` those the experts split over.
     Axes a layout leaves unmapped are ``ONE``."""
@@ -424,14 +424,17 @@ class Shard:
 
 
 SERVING_KINDS = ("prefill", "decode", "long")
+_AXES_3D = ("pod", "data", "model")
 
 
 def shard_of(layout: Layout, what: str) -> Shard:
-    """The ``Shard`` a serving layout on a live mesh executes.  Raises on
-    an ``AbstractMesh``, a layout kind other than ``prefill``, ``decode``
-    or ``long``, a mesh other than (``data``, ``model``) (the multi-pod
-    mesh is planned, not executed), or a mapping other than the
-    reference's rules give."""
+    """The ``Shard`` a serving layout on a live mesh executes: a (``data``,
+    ``model``) mesh, or with ``multi_pod`` a (``pod``, ``data``,
+    ``model``) one, whose (``pod``, ``data``) plane carries the batch and
+    whose whole world carries ``long``'s cache.  Raises on an
+    ``AbstractMesh``, a layout kind other than ``prefill``, ``decode``
+    or ``long``, a mesh whose axes do not match ``multi_pod``, or a
+    mapping other than the reference's rules give."""
     mesh = layout.mesh
     if not hasattr(mesh, "rank"):
         raise ValueError(f"{what}: {type(mesh).__name__} joins no world: it plans, it cannot "
@@ -439,14 +442,18 @@ def shard_of(layout: Layout, what: str) -> Shard:
     if layout.kind not in SERVING_KINDS:
         raise NotImplementedError(f"{what}: the {layout.kind!r} layout is not a serving layout; "
                                   f"a serving step executes {SERVING_KINDS}")
-    if tuple(mesh.axis_names) != ("data", "model") or layout.multi_pod:
-        raise NotImplementedError(f"{what}: a serving layout executes on a (data, model) mesh; "
-                                  f"{tuple(mesh.axis_names)} (multi_pod={layout.multi_pod}) is "
-                                  "planned only (ROADMAP, Queue 1)")
-    world = Axis(dist.group.WORLD, mesh.rank, math.prod(mesh.shape))
-    axes = {("model",): Axis(mesh.group("model"), mesh.index("model"), mesh.size("model")),
-            ("data",): Axis(mesh.group("data"), mesh.index("data"), mesh.size("data")),
-            ("data", "model"): world, None: ONE}
+    names = tuple(mesh.axis_names)
+    if names != (_AXES_3D if layout.multi_pod else _AXES_3D[1:]):
+        raise NotImplementedError(f"{what}: a layout with multi_pod={layout.multi_pod} executes "
+                                  f"on a {_AXES_3D if layout.multi_pod else _AXES_3D[1:]} mesh, "
+                                  f"not {names}")
+    axes = {None: ONE, names: Axis(dist.group.WORLD, mesh.rank, math.prod(mesh.shape))}
+    for a in names:
+        axes[(a,)] = Axis(mesh.group(a), mesh.index(a), mesh.size(a))
+    if layout.multi_pod:
+        axes[_AXES_3D[:2]] = Axis(mesh.group(_AXES_3D[:2]),
+                                  mesh.index("pod") * mesh.size("data") + mesh.index("data"),
+                                  mesh.size("pod") * mesh.size("data"))
 
     def of(names, name):
         if names not in axes:

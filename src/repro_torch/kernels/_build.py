@@ -17,6 +17,12 @@ Nothing builds at import time.
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
 that its main path went through the kernels.
+
+Given tensors on the meta device (a plan traced by
+``launch.op_analysis``), a wrapper launches nothing: it returns empty
+outputs of its kernel's shapes and passes the bytes its kernel moves
+(each input read once, each output written once) to ``charge``, which
+hands them to every meter in ``METERS``.
 """
 from __future__ import annotations
 
@@ -47,6 +53,21 @@ _LIBS: dict[str, ctypes.CDLL] = {}  # guarded by _LOCK
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+METERS: list = []  # callables (kernel name, bytes), while an op_analysis meter runs
+
+
+def charge(name: str, *tensors) -> None:
+    """A kernel's bytes on the meta device: the given tensors' (its inputs
+    as read, its outputs as written), to every meter in ``METERS``."""
+    n = sum(t.numel() * t.element_size() for t in tensors)
+    for meter in METERS:
+        meter(name, n)
+
+
+def is_meta(t) -> bool:
+    return t.device.type == "meta"
 
 
 def _nvcc() -> str:

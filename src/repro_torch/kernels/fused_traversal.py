@@ -144,6 +144,22 @@ def fused_traversal_round_ref(frontier_ids, frontier_dists, frontier_expanded, f
     )
 
 
+def _meta_round(args, b: int, l: int, m: int, c: int, width: int, gathered: bool) -> FusedRound:
+    """The round's outputs on the meta device, its bytes charged: the
+    inputs read once (of an ungathered code table, the M rows a query
+    reads), the outputs written once."""
+    def empty(n, dt):
+        return torch.empty((b, n), dtype=dt, device="meta")
+    outs = FusedRound(*(empty(l, dt) for dt in (torch.int32, torch.float32, torch.bool, torch.bool)),
+                      *(empty(width, dt) for dt in (torch.int32, torch.bool, torch.int32,
+                                                    torch.bool, torch.bool, torch.bool, torch.bool)))
+    reads = list(args)
+    if not gathered:
+        reads[5] = args[5].new_empty((b, m, c))
+    _build.charge(NAME, *reads, *outs)
+    return outs
+
+
 _DTYPES = (torch.int32, torch.float32, torch.bool, torch.bool, torch.int32, torch.int32,
            torch.bool, torch.float32, torch.int32)
 _ARGS = ("frontier_ids", "frontier_dists", "frontier_expanded", "frontier_passes", "new_ids",
@@ -180,6 +196,8 @@ def fused_traversal_round(frontier_ids, frontier_dists, frontier_expanded, front
         raise ValueError(f"mode {mode!r} / width {width} not supported")
     if lut.device.type == "cpu":
         return fused_traversal_round_ref(*args, mode=mode, width=width, gathered=gathered)
+    if _build.is_meta(lut):
+        return _meta_round(args, b, l, m, c, width, gathered)
     if not fused_supported(l=l, width=width, m=m, c=c, k=k, device=lut.device):
         raise ValueError(f"fused round does not support L={l} M={m} C={c} K={k} W={width}")
     if not all(t.is_contiguous() for t in args):

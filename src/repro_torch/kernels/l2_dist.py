@@ -89,10 +89,13 @@ def l2_dist(queries: torch.Tensor, rows: torch.Tensor, *, tree: bool = True) -> 
     _check_rows(queries, rows)
     if queries.device.type == "cpu":
         return l2_tree_ref(queries, rows) if tree else l2_expanded_ref(queries, rows)
-    if not (queries.is_contiguous() and rows.is_contiguous()):
-        raise ValueError("l2_dist wants contiguous tensors")
     b, w, d = rows.shape
     out = torch.empty((b, w), dtype=torch.float32, device=rows.device)
+    if _build.is_meta(rows):
+        _build.charge(NAME, queries, rows, out)
+        return out
+    if not (queries.is_contiguous() and rows.is_contiguous()):
+        raise ValueError("l2_dist wants contiguous tensors")
     if b == 0 or w == 0:  # nothing to compute: no launch, and none counted
         return out
     fn = _build.entry(NAME, "l2_dist_launch", 3, 4)
@@ -157,6 +160,10 @@ def rerank(queries: torch.Tensor, vecs: torch.Tensor, sel_ids: torch.Tensor,
         raise ValueError("rerank's tensors must lie on one device")
     if vecs.device.type == "cpu":
         return rerank_ref(*args, tree=tree)
+    if _build.is_meta(vecs):
+        outs = (res_ids.new_empty((b, k)), res_dists.new_empty((b, k)), n_degraded.new_empty((b,)))
+        _build.charge(RERANK, *args, *outs)
+        return outs
     if rerank_route(k, w, d, tree=tree) == "split":
         return rerank_composed(functools.partial(l2_dist, tree=tree), *args)
     if not all(t.is_contiguous() for t in args):

@@ -114,6 +114,9 @@ def pq_lookup_gathered(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
         return pq_lookup_gathered_ref(lut, codes)
     b, m = codes.shape[:2]
     out = torch.empty((b, m), dtype=torch.float32, device=lut.device)
+    if _build.is_meta(lut):
+        _build.charge(NAME, lut, codes, out)
+        return out
     return _launch(lut, codes, None, out, b, m, 0)
 
 
@@ -126,6 +129,9 @@ def adc_ids(lut: torch.Tensor, codes: torch.Tensor, ids: torch.Tensor) -> torch.
         return adc_ids_ref(lut, codes, ids)
     b, m = ids.shape
     out = torch.empty((b, m), dtype=torch.float32, device=lut.device)
+    if _build.is_meta(lut):  # the code rows of the ids are read, not the table
+        _build.charge(NAME, lut, ids, codes.new_empty((b, m, codes.shape[1])), out)
+        return out
     return _launch(lut, codes, ids, out, b, m, 1)
 
 
@@ -136,6 +142,10 @@ def pq_scan(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"codes {tuple(codes.shape)} is not (N, C)")
     if lut.device.type == "cpu":
         return pq_scan_ref(lut, codes)
+    if _build.is_meta(lut):
+        out = torch.empty((lut.shape[0], codes.shape[0]), dtype=torch.float32, device=lut.device)
+        _build.charge(SCAN_NAME, lut, codes, out)
+        return out
     if not (lut.is_contiguous() and codes.is_contiguous()):
         raise ValueError("pq_scan wants contiguous tensors")
     b, n = lut.shape[0], codes.shape[0]

@@ -82,6 +82,10 @@ def topk_merge(dists: torch.Tensor, ids: torch.Tensor, k: int):
         return topk_merge_ref(dists, ids, k)
     b, m = dists.shape
     p = padded_width(m)
+    if _build.is_meta(dists):
+        outs = (dists.new_empty((b, min(k, p))), ids.new_empty((b, min(k, p))))
+        _build.charge(NAME, dists, ids, *outs)
+        return outs
     if p > MAX_WIDTH:
         raise ValueError(f"M = {m} pads to {p} keys, which do not fit in a block's shared "
                          f"memory (at most {MAX_WIDTH})")

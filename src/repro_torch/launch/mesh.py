@@ -65,9 +65,11 @@ class Mesh:
         """This rank's coordinate along ``axis`` (``jax.lax.axis_index``)."""
         return self.coords[self.axis_names.index(axis)]
 
-    def group(self, axis: str):
+    def group(self, axis):
         """The process group of the ranks that differ from this one only
-        along ``axis``, ranked by their coordinate on it."""
+        along ``axis`` (a name, or on a 3-D mesh the pair (``pod``,
+        ``data``)), ranked by their coordinates on it, the first axis
+        major."""
         return self.groups[axis]
 
     def reshape(self, shape) -> "Mesh":
@@ -132,13 +134,19 @@ def make_mesh(shape, axis_names, *, backend: str, store, rank: int, world_size: 
 
 
 def _axis_groups(shape: tuple, axis_names: tuple, rank: int) -> tuple[tuple, dict]:
-    """(``rank``'s coordinates, its group along each axis): every group of
-    the shape created, in one order, by every rank of the world."""
+    """(``rank``'s coordinates, its group along each axis, and on a 3-D
+    mesh along the (``pod``, ``data``) plane, ``pod``-major: the batch
+    axes of the multi-pod layouts): every group of the shape created, in
+    one order, by every rank of the world."""
     ranks = np.arange(math.prod(shape)).reshape(shape)
     coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+    lines = [(name, np.moveaxis(ranks, a, -1).reshape(-1, shape[a]).tolist())
+             for a, name in enumerate(axis_names)]
+    if tuple(axis_names) == AXES_3D:
+        lines.append((AXES_3D[:2], ranks.reshape(-1, shape[2]).T.tolist()))
     groups = {}
-    for a, name in enumerate(axis_names):
-        for line in np.moveaxis(ranks, a, -1).reshape(-1, shape[a]).tolist():
+    for name, members in lines:
+        for line in members:
             g = dist.new_group(line)  # every rank, every group, one order
             if rank in line:
                 groups[name] = g

@@ -43,6 +43,8 @@ one device's.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -56,7 +58,8 @@ from repro_torch.distributed.sharding import (
     store_pspec,
 )
 from repro_torch.models.attention import Attention
-from repro_torch.models.layers import Drawing, Linear, RMSNorm, refuse_w8a16
+from repro_torch.models.layers import (Drawing, Linear, RMSNorm, ScaleRows, quantize_model,
+                                       quantize_weight, rope_freq)
 from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import StoredParams, Transformer, leaf_path
 from repro_torch.models.xlstm import SLSTM
@@ -159,24 +162,26 @@ def params_to_reference(model: Transformer) -> dict:
     return tree
 
 
-def leaf_params(model: Transformer) -> dict[str, list[torch.nn.Parameter]]:
+def leaf_params(model: Transformer, *, buffers: bool = False) -> dict[str, list[torch.Tensor]]:
     """Each reference leaf's path (``"embed"``, ``"final_norm/scale"``,
     ``"units/<pos>/attn/wq/w"``, ``"leftover/<i>/norm1/scale"``, ...) and
     the port's parameters it holds — a unit leaf's layers in unit order —
     in the reference's flattening order (JAX's sorted dict keys, list
-    entries by index)."""
+    entries by index).  With ``buffers``, a w8a16 model's ``w_q`` /
+    ``w_s`` too."""
     cfg = model.cfg
     n_unit = len(cfg.pattern_unit)
+    named = ((lambda m: m.state_dict(keep_vars=True).items()) if buffers
+             else (lambda m: m.named_parameters()))
     out = [(("embed",), [model.embed]), (("final_norm", "scale"), [model.final_norm.scale])]
     if model.unembed is not None:
         out.append((("unembed",), [model.unembed]))
     for pos in range(n_unit if cfg.n_units else 0):
-        layers = [dict(model.layers[u * n_unit + pos].named_parameters())
-                  for u in range(cfg.n_units)]
+        layers = [dict(named(model.layers[u * n_unit + pos])) for u in range(cfg.n_units)]
         out += [(("units", str(pos), *name.split(".")), [ps[name] for ps in layers])
                 for name in layers[0]]
     for i, layer in enumerate(model.layers[cfg.n_units * n_unit:]):
-        out += [(("leftover", i, *name.split(".")), [p]) for name, p in layer.named_parameters()]
+        out += [(("leftover", i, *name.split(".")), [p]) for name, p in named(layer)]
     out.sort(key=lambda kv: kv[0])
     return {"/".join(map(str, path)): ps for path, ps in out}
 
@@ -278,8 +283,13 @@ def reference_axes(model: Transformer) -> dict[str, tuple]:
 
 
 # ------------------------------------------------- a rank's blocks under a layout
+def _tensors(model: Transformer) -> dict:
+    """The model's parameters and w8a16 buffers, by name."""
+    return dict(model.state_dict(keep_vars=True))
+
+
 def compute_specs(model: Transformer, layout: Layout) -> dict:
-    """Each parameter's compute spec (``param_pspec``), by its name in
+    """Each tensor's compute spec (``param_pspec``), by its name in
     ``model``; the mLSTM's ``norm`` scale whole (the module docstring)."""
     out = {"embed": param_pspec(("vocab", "embed"), layout),
            "final_norm.scale": param_pspec(("embed",), layout)}
@@ -292,20 +302,48 @@ def compute_specs(model: Transformer, layout: Layout) -> dict:
     return out
 
 
+def scale_rows_spec(cfg: ModelConfig, layout: Layout, name: str):
+    """(the compute spec of the stacked leaf, the unit) for a w8a16 scale
+    ``name`` of a layer in a stacked unit when that spec splits the units
+    over more than one rank (the reference's ``quantize_axes`` quirk,
+    ``layers.ScaleRows``); else None."""
+    if not name.endswith(".w_s") or layout.kind == "prefill":
+        return None
+    _, u = leaf_path(cfg, name)
+    if u is None:
+        return None
+    spec = param_pspec(_layer_leaf_axes(tuple(name.split(".", 2)[2].split(".")), stacked=True),
+                       layout)
+    first = spec[0] if len(spec) else None
+    axes = (first,) if isinstance(first, str) else tuple(first or ())
+    sizes = dict(zip(layout.mesh.axis_names, layout.mesh.shape))
+    return (spec, u) if math.prod(sizes[a] for a in axes) > 1 else None
+
+
 def _pieces(meta: Transformer, layout: Layout) -> tuple[dict, tuple | None]:
-    """(each parameter's slices of this rank's piece, by name: its compute
-    block (decode, long), or its layer's slice of the stacked leaf's
-    storage block, None where the block holds other units (prefill);
-    the storage plan, ``_stored_plan``, under prefill), from a model of
-    whole shapes."""
+    """(each tensor's slices of this rank's piece, by name: its compute
+    block (decode, long) — for a scale under ``scale_rows_spec`` its
+    unit's row of the stacked block, None where the block holds other
+    units — or its layer's slice of the stacked leaf's storage block,
+    None where the block holds other units (prefill); the storage plan,
+    ``_stored_plan``, under prefill), from a model of whole shapes."""
     mesh = layout.mesh
-    params = dict(meta.named_parameters())
+    tensors = _tensors(meta)
     if layout.kind != "prefill":
-        return {name: NamedSharding(mesh, spec).block(tuple(params[name].shape), mesh.rank)
-                for name, spec in compute_specs(meta, layout).items()}, None
+        out = {}
+        for name, spec in compute_specs(meta, layout).items():
+            shape = tuple(tensors[name].shape)
+            rows = scale_rows_spec(meta.cfg, layout, name)
+            if rows is None:
+                out[name] = NamedSharding(mesh, spec).block(shape, mesh.rank)
+                continue
+            stacked, u = rows
+            blk = NamedSharding(mesh, stacked).block((meta.cfg.n_units,) + shape, mesh.rank)
+            out[name] = blk[1:] if blk[0].start <= u < blk[0].stop else None
+        return out, None
     shapes, specs = plan = _stored_plan(meta, layout)
     out = {}
-    for name in params:
+    for name in tensors:
         path, u = leaf_path(meta.cfg, name)
         blk = NamedSharding(mesh, specs[path]).block(shapes[path], mesh.rank)
         out[name] = blk if u is None else (blk[1:] if blk[0].start <= u < blk[0].stop else None)
@@ -315,18 +353,23 @@ def _pieces(meta: Transformer, layout: Layout) -> tuple[dict, tuple | None]:
 def _stored_plan(meta: Transformer, layout: Layout) -> tuple[dict, dict]:
     """(each reference leaf's full shape, its storage spec), by path."""
     shapes = {}
-    for path, ps in leaf_params(meta).items():
+    for path, ps in leaf_params(meta, buffers=True).items():
         shape = tuple(ps[0].shape)
         shapes[path] = (len(ps),) + shape if path.startswith("units/") else shape
     axes = reference_axes(meta)
     return shapes, {path: store_pspec(shapes[path], axes[path], layout) for path in shapes}
 
 
+def _cut(t: torch.Tensor, blk) -> None:
+    """``t`` holding its piece ``blk`` (a copy), or nothing (None)."""
+    t.data = t.data[blk].clone() if blk is not None else t.data.new_empty(0)
+
+
 def _finish(model: Transformer, layout: Layout, pieces: dict, plan: tuple | None):
-    """The rank's parameters from a model whose parameters hold their
-    pieces (``_pieces``): the model itself, its modules told their
-    splits (decode, long), or a ``StoredParams`` of the stacked blocks
-    (prefill)."""
+    """The rank's parameters from a model whose tensors hold their pieces
+    (``_pieces``): the model itself, its modules told their splits and
+    the stacked scales' rows assembled (decode, long), or a
+    ``StoredParams`` of the stacked blocks (prefill)."""
     shard = shard_of(layout, "a rank's parameters")
     mesh = layout.mesh
     if layout.kind != "prefill":
@@ -344,20 +387,34 @@ def _finish(model: Transformer, layout: Layout, pieces: dict, plan: tuple | None
             return shard.model
 
         model.shard = shard
+        rows: dict = {}  # (pattern position, module path) -> the units' Linears
         for name, m in model.named_modules():
             if isinstance(m, Linear):
-                m.reduce = split(specs[f"{name}.w"])
+                m.reduce = split(specs[f"{name}.w" if m.w is not None else f"{name}.w_q"])
+                if m.w is None and scale_rows_spec(model.cfg, layout, f"{name}.w_s") is not None:
+                    i, rest = name.split(".", 2)[1:]
+                    u, pos = divmod(int(i), len(model.cfg.pattern_unit))
+                    rows.setdefault((pos, rest), []).append((u, name, m))
+                    model.scale_rows.setdefault(int(i), []).append(m)
             elif isinstance(m, RMSNorm):
                 m.split = split(specs[f"{name}.scale"])
             elif isinstance(m, (Attention, MoE, SLSTM)):
                 m.shard = shard
+        for lins in rows.values():  # one tensor of the rank's rows, shared by the units
+            lins.sort(key=lambda x: x[0])
+            held = [m.w_s for _, name, m in lins if pieces[f"{name}.w_s"] is not None]
+            block = (torch.stack(held) if held
+                     else lins[0][2].w_s.new_empty((0,) + tuple(lins[0][2].w_q.shape[1:])))
+            for u, _, m in lins:
+                m.register_buffer("w_s", block)
+                m.scale_rows = ScaleRows(unit=u, units=model.cfg.n_units, axis=shard.model)
         return model
     shapes, specs = plan
     held: dict = {}
-    for name, p in model.named_parameters():
+    for name, t in _tensors(model).items():
         if pieces[name] is not None:
             path, u = leaf_path(model.cfg, name)
-            held.setdefault(path, []).append((u, p.data))
+            held.setdefault(path, []).append((u, t.data))
     blocks = {}
     for path, got in held.items():
         got.sort(key=lambda x: -1 if x[0] is None else x[0])
@@ -369,26 +426,33 @@ def _finish(model: Transformer, layout: Layout, pieces: dict, plan: tuple | None
 
 
 def shard_model(model: Transformer, layout: Layout):
-    """This rank's parameters of a whole ``model`` under a serving layout
-    on a live mesh (the module docstring).  Under decode and long the
-    model's parameters are cut to their blocks in place."""
-    refuse_w8a16(model, "shard_model")
+    """This rank's parameters of a whole ``model`` (float32 or w8a16)
+    under a serving layout on a live mesh (the module docstring).  Under
+    decode and long the model's tensors are cut to their blocks in
+    place."""
     shard_of(layout, "shard_model")
     pieces, plan = _pieces(model, layout)
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            blk = pieces[name]
-            p.data = p.data[blk].clone() if blk is not None else p.data.new_empty(0)
+        for name, t in _tensors(model).items():
+            _cut(t, pieces[name])
     return _finish(model, layout, pieces, plan)
 
 
-def draw_rank_params(cfg: ModelConfig, generator: torch.Generator, layout: Layout, device=None):
+def _meta_model(cfg: ModelConfig, w8a16: bool) -> Transformer:
+    meta = Transformer(cfg, device="meta")
+    return quantize_model(meta) if w8a16 else meta
+
+
+def draw_rank_params(cfg: ModelConfig, generator: torch.Generator, layout: Layout, device=None,
+                     *, w8a16: bool = False):
     """This rank's parameters under a serving layout, drawn leaf by leaf
     from ``generator`` in the one-device init's order (``layers.Drawing``):
     each leaf drawn whole on ``device`` (default: the mesh's), cut to
     the rank's piece and freed; the leaves the init does not draw (norm
     scales, biases) are made whole and cut.  The values are those of
-    ``Transformer(cfg, generator=...)`` on one device."""
+    ``Transformer(cfg, generator=...)`` on one device, and with
+    ``w8a16`` those of ``quantize_model`` of it: each linear's weight is
+    quantised whole as it is drawn, then its codes and scales are cut."""
     shard_of(layout, "init_params")
     device = layout.mesh.device if device is None else device
     order: list = []
@@ -396,18 +460,60 @@ def draw_rank_params(cfg: ModelConfig, generator: torch.Generator, layout: Layou
         torch.Generator(), lambda w: order.append(w.untyped_storage()._cdata) or w))
     by_storage = {p.untyped_storage()._cdata: name for name, p in meta.named_parameters()}
     names = [by_storage[c] for c in order]
-    pieces, plan = _pieces(meta, layout)
+    linears = {name for name, m in meta.named_modules() if isinstance(m, Linear)}
+    pieces, plan = _pieces(quantize_model(meta) if w8a16 else meta, layout)
     turn = iter(names)
+    quantized: dict = {}
 
     def keep(w: torch.Tensor) -> torch.Tensor:
-        blk = pieces[next(turn)]
+        name = next(turn)
+        mod = name[:-2]
+        if w8a16 and name.endswith(".w") and mod in linears:
+            q, s = quantize_weight(w)
+            quantized[mod] = tuple(t[blk].clone() if blk is not None else t.new_empty(0)
+                                   for t, blk in ((q, pieces[f"{mod}.w_q"]),
+                                                  (s, pieces[f"{mod}.w_s"])))
+            return w.new_empty(0)
+        blk = pieces[name]
         return w[blk].clone() if blk is not None else w.new_empty(0)
 
     model = Transformer(cfg, generator=Drawing(generator, keep), device=device)
+    for name, m in model.named_modules():
+        if name in quantized:
+            m.set_w8a16(*quantized[name])
     drawn_names = set(names)
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name not in drawn_names:
-                blk = pieces[name]
-                p.data = p.data[blk].clone() if blk is not None else p.data.new_empty(0)
+        for name, t in _tensors(model).items():
+            if name not in drawn_names and not (name.endswith((".w_q", ".w_s"))
+                                                and name[:-4] in quantized):
+                _cut(t, pieces[name])
+    return _finish(model, layout, pieces, plan)
+
+
+def empty_rank_params(cfg: ModelConfig, layout: Layout, *, device, dtype: torch.dtype,
+                      w8a16: bool = False):
+    """This rank's parameters under a serving layout as uninitialised
+    tensors of its pieces' shapes on ``device`` (``"meta"`` to plan): the
+    floating tensors in ``dtype`` but the w8a16 scales (float32, as the
+    reference's ``quantize_tree`` keeps them), the codes int8.  Nothing
+    is drawn, so a full-width arch costs only its rank's bytes."""
+    shard_of(layout, "empty_rank_params")
+    model = _meta_model(cfg, w8a16)
+    pieces, plan = _pieces(model, layout)
+    device = torch.device(device)
+    for name, t in _tensors(model).items():
+        blk = pieces[name]
+        shape = tuple(t[blk].shape) if blk is not None else (0,)
+        dt = dtype if t.dtype.is_floating_point and not name.endswith(".w_s") else t.dtype
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        new = torch.empty(shape, dtype=dt, device=device)
+        if leaf in mod._parameters:  # a new tensor: a meta tensor's storage cannot be replaced
+            mod._parameters[leaf] = torch.nn.Parameter(new, requires_grad=False)
+        else:
+            mod._buffers[leaf] = new
+    for m in model.modules():  # the rotary frequencies: not a parameter, made anew
+        if isinstance(m, Attention):
+            m.register_buffer("freq", rope_freq(m.cfg.head_dim, m.cfg.rope_theta, device),
+                              persistent=False)
     return _finish(model, layout, pieces, plan)

@@ -53,7 +53,17 @@ whose input is split (``split``) sums the block's squares, all-reduces
 the sum and scales its block; it is not folded into the products'
 all-reduce, since one device rounds the normalised values to the
 activation dtype before the products, which needs the sum first.
-w8a16 weights on a mesh raise.
+A w8a16 ``Linear`` under a layout dequantises its blocks of ``w_q`` and
+``w_s`` as one device does (``w_q.to(dt) * w_s.to(dt)``) and then takes
+the float weights' path.  Its scales are taken over the whole input
+dimension before the blocks are cut, as the reference quantises each
+leaf whole and then shards it.  Reference behaviour copied: the
+reference's ``quantize_axes`` gives a stacked unit leaf's scales
+(``units``, *out) the axes of ``w[1:]`` (in, *out), so its spec splits
+the *units* by the input axis's rule (over ``model`` in ``decode`` and
+``long``).  A rank then holds those rows (``ScaleRows``) and
+``gathered_scales`` all-gathers a layer's rows over the axis before the
+layer runs.
 
 A ``Drawing`` given as the init's generator passes every leaf drawn
 from its generator through its ``keep`` as it is drawn, in the init's
@@ -63,6 +73,8 @@ freed (``models.zoo.init_params`` with a layout).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 from typing import Callable, NamedTuple
 
@@ -116,7 +128,10 @@ class Linear(nn.Module):
     """Weight ``w`` (in_dim, *out_shape) with fan-in init N(0, 1/in_dim)
     (the reference's ``init_linear``), optional zero bias ``b`` (*out_shape).
     Quantised (``set_w8a16``), ``w`` is None and the buffers ``w_q`` /
-    ``w_s`` hold the weight."""
+    ``w_s`` hold the weight.  Under a layout whose spec splits a stacked
+    unit leaf's scales over the units (``ScaleRows``, the module
+    docstring), ``w_s`` is the rank's rows of that leaf and
+    ``gathered_scale`` this layer's row while ``gathered_scales`` runs."""
 
     def __init__(self, in_dim: int, out_shape, *, bias: bool = False,
                  generator: torch.Generator | None = None, device=None):
@@ -127,14 +142,25 @@ class Linear(nn.Module):
         self.b = (nn.Parameter(torch.zeros(out_shape, dtype=torch.float32, device=device),
                                requires_grad=False) if bias else None)
         self.reduce = None  # the Axis its input dimension is split over, under a layout
+        self.scale_rows = None  # a ScaleRows when w_s holds rows of a stacked leaf's scales
+        self.gathered_scale = None
+
+    def weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The float32 master, or the w8a16 weight dequantised in ``dtype``
+        (``w_q.to(dtype) * w_s.to(dtype)``, the reference's order)."""
+        if self.w is not None:
+            return self.w
+        w_s = self.w_s if self.scale_rows is None else self.gathered_scale
+        if w_s is None:
+            raise RuntimeError("a Linear whose scales are rows of a stacked leaf runs inside "
+                               "gathered_scales")
+        return self.w_q.to(dtype) * w_s.to(dtype)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
-        if self.w is None:  # w8a16: dequantise, then the product
-            dt = dtype or x.dtype
-            return linear(x, self.w_q.to(dt) * self.w_s.to(dt), self.b, dtype)
+        w = self.weight(dtype or x.dtype)
         if self.reduce is not None:
-            return linear_reduced(x, self.w, self.b, dtype, self.reduce)
-        return linear(x, self.w, self.b, dtype)
+            return linear_reduced(x, w, self.b, dtype, self.reduce)
+        return linear(x, w, self.b, dtype)
 
     def set_w8a16(self, w_q: torch.Tensor, w_s: torch.Tensor) -> None:
         """Hold the weight as int8 codes ``w_q`` (in, *out) and float32
@@ -144,13 +170,41 @@ class Linear(nn.Module):
         self.register_buffer("w_s", w_s)
 
 
-def refuse_w8a16(model: nn.Module, what: str) -> None:
-    """Raise on w8a16 weights (``quantize_model``) under a mesh: the
-    reference plans them (``quantize_axes``' specs), the port does not
-    execute them."""
-    if any(isinstance(m, Linear) and m.w is None for m in model.modules()):
-        raise NotImplementedError(f"{what}: w8a16 weights under a mesh are not executed by the "
-                                  "port (ROADMAP, Queue 1: the next slice); serve them on one device")
+@dataclasses.dataclass(frozen=True)
+class ScaleRows:
+    """A w8a16 ``Linear`` of unit ``unit`` of a stacked leaf whose scales
+    (``units``, *out) the rank holds as its ceiling block of rows over
+    ``axis`` (the reference's ``quantize_axes`` spec: the scales' unit
+    dimension takes the input axis's rule)."""
+    unit: int
+    units: int
+    axis: object
+
+
+@contextlib.contextmanager
+def gathered_scales(lins: list):
+    """While the block runs, each ``Linear`` of ``lins`` (one layer's
+    Linears with ``scale_rows``, ``Transformer.scale_rows``) holds its
+    unit's row of scales in ``gathered_scale``: every such Linear's rows
+    (padded to the ceiling block) in one all-gather over their axis."""
+    axis = lins[0].scale_rows.axis
+    rows = -(-lins[0].scale_rows.units // axis.size)
+    pads = []
+    for m in lins:
+        p = m.w_s.new_zeros((rows,) + tuple(m.w_s.shape[1:]))
+        p[:m.w_s.shape[0]] = m.w_s
+        pads.append(p.reshape(-1))
+    got = axis.all_gather(torch.cat(pads)[None], 0)  # (axis, every Linear's rows)
+    off = 0
+    for m, p in zip(lins, pads):
+        part = got[:, off:off + p.numel()].reshape((axis.size * rows,) + tuple(m.w_s.shape[1:]))
+        m.gathered_scale = part[m.scale_rows.unit]
+        off += p.numel()
+    try:
+        yield
+    finally:
+        for m in lins:
+            m.gathered_scale = None
 
 
 def quantize_model(model: nn.Module) -> nn.Module:
@@ -241,15 +295,16 @@ def linears(x: torch.Tensor, mods, dtype: torch.dtype | None = None) -> list:
     products are summed in one all-reduce, each then rounded once and
     given its bias, as ``linear_reduced`` would one by one."""
     axis = mods[0].reduce
-    if axis is None or any(m.reduce is not axis or m.w is None for m in mods):
+    if axis is None or any(m.reduce is not axis for m in mods):
         return [m(x, dtype) for m in mods]
     dt = dtype or x.dtype
     xf = x.to(dt).float()
-    flat = [m.w.to(dt).float().reshape(m.w.shape[0], -1) for m in mods]
+    ws = [m.weight(dt) for m in mods]
+    flat = [w.to(dt).float().reshape(w.shape[0], -1) for w in ws]
     y = axis.all_reduce(torch.cat([torch.matmul(xf, w) for w in flat], dim=-1)).to(dt)
     out = []
-    for m, part in zip(mods, y.split([w.shape[1] for w in flat], dim=-1)):
-        part = part.reshape(*x.shape[:-1], *m.w.shape[1:])
+    for m, w, part in zip(mods, ws, y.split([f.shape[1] for f in flat], dim=-1)):
+        part = part.reshape(*x.shape[:-1], *w.shape[1:])
         out.append(part if m.b is None else part + m.b.to(dt))
     return out
 

@@ -110,8 +110,9 @@ class RGLRU(nn.Module):
             r = sigmoid(self.w_a(xi, torch.float32))
             i = sigmoid(self.w_i(xi, torch.float32))
         else:
-            r = sigmoid(linear(xi_all, self.w_a.w[:, cols], dtype=torch.float32))
-            i = sigmoid(linear(xi_all, self.w_i.w[:, cols], dtype=torch.float32))
+            f32 = torch.float32
+            r = sigmoid(linear(xi_all, self.w_a.weight(f32)[:, cols], dtype=f32))
+            i = sigmoid(linear(xi_all, self.w_i.weight(f32)[:, cols], dtype=f32))
         a = torch.exp(-_C * softplus(self.lam[cols].float()) * r)
         beta = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))
         return a, beta * i * xi.float()
@@ -125,13 +126,13 @@ class RGLRU(nn.Module):
             raise NotImplementedError(f"RG-LRU prefill: width {w} over {ax.size} ranks")
         cols = ax.block(w)
         xs = ax.all_gather(x, 1)  # (B, T, D)
-        xi = linear(xs, self.w_rec.w[:, cols])
-        gate = gelu_tanh(linear(xs, self.w_gate.w[:, cols]))
+        dt = x.dtype
+        xi = linear(xs, self.w_rec.weight(dt)[:, cols])
+        gate = gelu_tanh(linear(xs, self.w_gate.weight(dt)[:, cols]))
         xi, _ = causal_conv(xi, self.conv_w[:, cols], self.conv_b[cols])
         _, h = linear_scan(*self._gates(xi, ax.all_gather(xi, -1), cols))
-        dt = x.dtype
         y = (h.to(dt) * gate).float()
-        part = torch.matmul(y, self.w_out.w[cols].to(dt).float())
+        part = torch.matmul(y, self.w_out.weight(dt)[cols].to(dt).float())
         return ax.reduce_scatter(part, 1).to(dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

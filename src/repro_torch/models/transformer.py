@@ -36,7 +36,8 @@ the residual stream to the wider dtype from the first attention layer's
 output on, exactly as the reference does.
 
 Under an executed serving layout (``distributed.sharding.Shard``, on a
-live (``data``, ``model``) mesh, one process a rank):
+live (``data``, ``model``) or (``pod``, ``data``, ``model``) mesh, one
+process a rank):
 
 * ``decode`` and ``long``: a ``Transformer`` holding the rank's
   ``param_pspec`` blocks (``models.convert.shard_model`` or
@@ -73,9 +74,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import Layout, NamedSharding, Shard
+from repro_torch.distributed.sharding import Layout, NamedSharding, Shard, _entry_axes
 from repro_torch.models.attention import Attention, make_cache
-from repro_torch.models.layers import FFN, RMSNorm, normal_init, rms_norm, scalar
+from repro_torch.models.layers import (FFN, Linear, RMSNorm, gathered_scales, normal_init,
+                                       rms_norm, scalar)
 from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU, make_rglru_state
 from repro_torch.models.xlstm import MLSTM, SLSTM, make_mlstm_state, make_slstm_state
@@ -250,6 +252,7 @@ class Transformer(nn.Module):
             make_layer(cfg, kind, w, generator=generator, device=device)
             for kind, w in zip(cfg.layer_kinds, cfg.layer_windows))
         self.shard = None  # a Shard when the model holds a rank's blocks (decode, long)
+        self.scale_rows: dict = {}  # layer index -> its Linears holding scale rows (w8a16, mesh)
 
     @property
     def device(self) -> torch.device:
@@ -396,8 +399,12 @@ class Transformer(nn.Module):
         rank's model: its rows).  Returns (logits (B, 1, V) float32,
         caches), the caches updated in place."""
         x = self.embed_tokens(tokens)
-        for layer, cache in zip(self.layers, caches):
-            x, _ = layer.decode(x, cache, pos)
+        for i, (layer, cache) in enumerate(zip(self.layers, caches)):
+            if i in self.scale_rows:  # w8a16 on a mesh: the layer's stacked scales' rows
+                with gathered_scales(self.scale_rows[i]):
+                    x, _ = layer.decode(x, cache, pos)
+            else:
+                x, _ = layer.decode(x, cache, pos)
         return self.logits(self.final_norm(x)), caches
 
 
@@ -445,8 +452,9 @@ class StoredParams:
     def _gather(self, want: list) -> list:
         """The whole value of each (leaf path, unit index or None) of
         ``want`` (a unit leaf's layer at that index): every rank's pieces
-        in one all-gather over the world (a piece is a block's slice at
-        the unit, zeros where the block holds other units)."""
+        in one all-gather over the world a dtype (a piece is a block's
+        slice at the unit, zeros where the block holds other units), each
+        value put together from its blocks by one permute (``_assemble``)."""
         mesh = self.layout.mesh
         world = math.prod(mesh.shape)
         shards = [NamedSharding(mesh, self.specs[path]) for path, _ in want]
@@ -457,28 +465,60 @@ class StoredParams:
                 units = sh.block(self.shapes[path], mesh.rank)[0]
                 b = b[u - units.start] if units.start <= u < units.stop else b.new_zeros(b.shape[1:])
             pieces.append(b)
-        local = torch.cat([p.reshape(-1) for p in pieces])
-        out = local.new_empty((world, local.numel()))
-        dist.all_gather(list(out.unbind(0)), local)
-        self.gathered_bytes += out.numel() * out.element_size()
-        whole = [local.new_empty(self.shapes[path][0 if u is None else 1:]) for path, u in want]
-        for r in range(world):
+        whole = [None] * len(want)
+        by_dtype: dict = {}  # one all-gather a dtype (w8a16: the codes apart)
+        for j, p in enumerate(pieces):
+            by_dtype.setdefault(p.dtype, []).append(j)
+        for js in by_dtype.values():
+            local = torch.cat([pieces[j].reshape(-1) for j in js])
+            out = local.new_empty((world, local.numel()))
+            dist.all_gather(list(out.unbind(0)), local)
+            self.gathered_bytes += out.numel() * out.element_size()
             off = 0
-            for (path, u), sh, piece, w in zip(want, shards, pieces, whole):
-                n = piece.numel()
-                blk = sh.block(self.shapes[path], r)
-                if u is None or blk[0].start <= u < blk[0].stop:
-                    w[blk if u is None else blk[1:]] = out[r, off:off + n].view(piece.shape)
+            for j in js:
+                (path, u), n = want[j], pieces[j].numel()
+                whole[j] = self._assemble(out[:, off:off + n].reshape(world, *pieces[j].shape),
+                                          self.specs[path], self.shapes[path], u)
                 off += n
         return whole
+
+    def _assemble(self, parts: torch.Tensor, spec, shape: tuple, u: int | None) -> torch.Tensor:
+        """A leaf of ``shape`` under ``spec`` (its layer ``u``'s slice of a
+        unit leaf) from every rank's piece, ``parts`` (world, *piece), in
+        rank order: the mesh axes the spec leaves out replicate a block (the
+        first copy is taken), the unit's holders are those whose block of
+        the units holds ``u``, and each dimension's blocks are laid side by
+        side in its axes' order.  A storage spec splits every dimension
+        evenly, so the blocks tile the leaf."""
+        names, sizes = tuple(self.layout.mesh.axis_names), tuple(self.layout.mesh.shape)
+        size = dict(zip(names, sizes))
+        entries = [_entry_axes(e) for e in spec] + [()] * (len(shape) - len(spec))
+        fixed: dict = {}
+        if u is not None:  # the coordinates of the ranks holding unit u
+            idx = u // (shape[0] // math.prod(size[a] for a in entries[0]))
+            for a in reversed(entries[0]):
+                fixed[a], idx = idx % size[a], idx // size[a]
+            entries, shape = entries[1:], shape[1:]
+        named = {a for axes in entries for a in axes}
+        g = parts.reshape(*sizes, *parts.shape[1:])
+        g = g[tuple(slice(None) if a in named else fixed.get(a, 0) for a in names)]
+        kept = [a for a in names if a in named]
+        order = []
+        for d, axes in enumerate(entries):
+            order += [kept.index(a) for a in axes] + [len(kept) + d]
+        return g.permute(order).reshape(shape)
 
     def _layer(self, i: int) -> nn.Module:
         """Layer i with its compute parameters gathered whole, but for the
         experts (the rank's block: ``experts`` on ``model``), and the
-        layout's ``Shard`` set on the modules that execute it."""
+        layout's ``Shard`` set on the modules that execute it; a w8a16
+        linear's codes and scales gathered as stored."""
         cfg, sh = self.cfg, self.shard
         layer = make_layer(cfg, cfg.layer_kinds[i], cfg.layer_windows[i], device=self.device)
-        params = dict(layer.named_parameters())
+        for name, m in layer.named_modules():  # w8a16: the stored leaves are codes and scales
+            if isinstance(m, Linear) and f"{leaf_path(cfg, f'layers.{i}.{name}')[0]}/w_q" in self.shapes:
+                m.set_w8a16(m.w.new_empty(0, dtype=torch.int8), m.w.new_empty(0))
+        params = layer.state_dict(keep_vars=True)
         whole = self._gather([leaf_path(cfg, f"layers.{i}.{name}") for name in params])
         experts = sh.experts.block(cfg.n_experts) if cfg.n_experts else None
         for (name, p), w in zip(params.items(), whole):

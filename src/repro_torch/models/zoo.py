@@ -3,8 +3,9 @@
 Port of ``repro.models.zoo``'s concrete half: ``init_params`` and
 ``make_concrete_batch``.  The reference's ``input_specs`` /
 ``abstract_params`` build ``jax.ShapeDtypeStruct`` stand-ins for its
-multi-pod dry run (``eval_shape``); they wait for the port's dry-run
-counterpart.  ``param_axes`` is ``models.convert.reference_axes`` of a
+multi-pod dry run (``eval_shape``); the port's dry run
+(``launch.dryrun``) builds a rank's empty blocks on the meta device
+instead (``models.convert.empty_rank_params``).  ``param_axes`` is ``models.convert.reference_axes`` of a
 ``Transformer(cfg, device="meta")``.  Stub frontends surface here as in the
 reference: internvl2's patch embeddings arrive as a precomputed
 ``prefix_embeds`` input.
@@ -17,20 +18,24 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed.sharding import NULL_LAYOUT, Layout
 from repro_torch.models.convert import draw_rank_params
+from repro_torch.models.layers import quantize_model
 from repro_torch.models.transformer import StoredParams, Transformer
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None, *,
-                layout: Layout = NULL_LAYOUT) -> Transformer | StoredParams:
+                layout: Layout = NULL_LAYOUT, w8a16: bool = False) -> Transformer | StoredParams:
     """A randomly initialised model from ``generator`` on ``device``
-    (``None``: the card; on a mesh, the mesh's device).  With a serving
-    layout on a live mesh, this rank's parameters of that same model
-    (``models.convert.draw_rank_params``: a ``Transformer`` of compute
-    blocks under ``decode`` / ``long``, ``StoredParams`` under
-    ``prefill``), drawn a leaf at a time."""
+    (``None``: the card; on a mesh, the mesh's device), its linears
+    quantised to w8a16 (``layers.quantize_model``) when ``w8a16``.  With
+    a serving layout on a live mesh, this rank's parameters of that same
+    model (``models.convert.draw_rank_params``: a ``Transformer`` of
+    compute blocks under ``decode`` / ``long``, ``StoredParams`` under
+    ``prefill``), drawn a leaf at a time, each linear quantised whole
+    before it is cut."""
     if layout.mesh is not None and layout.kind is not None:
-        return draw_rank_params(cfg, generator, layout, device)
-    return Transformer(cfg, generator=generator, device=device)
+        return draw_rank_params(cfg, generator, layout, device, w8a16=w8a16)
+    model = Transformer(cfg, generator=generator, device=device)
+    return quantize_model(model) if w8a16 else model
 
 
 def _bf16(x: np.ndarray) -> np.ndarray:

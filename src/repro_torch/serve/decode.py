@@ -15,7 +15,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import NULL_LAYOUT, Layout, NamedSharding, PartitionSpec as P
 from repro_torch.models.attention import kv_cache_quantized
-from repro_torch.models.layers import refuse_w8a16
 from repro_torch.serve.prefill import as_device_tensor, serving_shard
 
 
@@ -35,14 +34,14 @@ def make_serve_step(cfg: ModelConfig, *, layout: Layout = NULL_LAYOUT, greedy: b
     ``init_caches``), ``tokens`` and the outputs its rows (``act_batch``:
     ``data`` in decode; every row in long), the logits equal on every
     ``model`` rank.  Raises on an ``AbstractMesh``, on another layout
-    kind on a mesh and on w8a16 weights under a mesh."""
+    kind on a mesh.  w8a16 weights (``init_params(..., w8a16=True)``)
+    run under a layout as on one device."""
     shard = serving_shard(layout, "make_serve_step", ("decode", "long"))
 
     def serve_step(params, caches: list, tokens, pos: int) -> dict:
         if params.cfg != cfg:
             raise ValueError(f"serve_step: the model's config is {params.cfg.name}, not {cfg.name}")
         if shard is not None:
-            refuse_w8a16(params, "serve_step")
             if params.shard != shard:
                 raise ValueError("serve_step: the model does not hold this rank's blocks under "
                                  "this layout (models.zoo.init_params(..., layout=layout))")

@@ -13,7 +13,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import NULL_LAYOUT, Layout, Shard, shard_of
-from repro_torch.models.layers import refuse_w8a16
 from repro_torch.models.transformer import StoredParams
 
 
@@ -57,7 +56,6 @@ def make_prefill_step(cfg: ModelConfig, *, layout: Layout = NULL_LAYOUT):
             raise ValueError(f"prefill_step: the model's config is {params.cfg.name}, not {cfg.name}")
         if shard is not None:
             if not isinstance(params, StoredParams):
-                refuse_w8a16(params, "prefill_step")
                 raise ValueError("prefill_step: under the prefill layout, params is the rank's "
                                  "StoredParams (models.zoo.init_params(..., layout=layout))")
             if params.shard != shard:

@@ -41,7 +41,6 @@ from repro_torch.core.engine import GateANNEngine
 from repro_torch.core.search import SearchConfig, SearchStats
 from repro_torch.distributed.sharding import NULL_LAYOUT, Layout
 from repro_torch.models.transformer import Transformer
-from repro_torch.models.layers import refuse_w8a16
 from repro_torch.serve.prefill import serving_shard
 from repro_torch.store.adaptive import AdaptiveRecordCache
 
@@ -259,7 +258,6 @@ class RAGServer:
         model = self.params
         shard = serving_shard(self.layout, "RAGServer.generate", ("decode", "long"))
         if shard is not None:
-            refuse_w8a16(model, "RAGServer.generate")
             if model.shard != shard:
                 raise ValueError("generate: params does not hold this rank's blocks under the "
                                  "server's layout (models.zoo.init_params(..., layout=layout))")

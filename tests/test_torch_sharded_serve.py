@@ -10,15 +10,22 @@ emulated XLA devices and two ``spawn_local`` worlds of gloo ranks:
   recurrentgemma-9b and xlstm-350m smoke configs (B = 4, a 6-token
   prompt teacher-forced, then 4 greedy tokens, float32 caches of 13
   slots: 13 does not divide by 4, and gemma's window-16 rings are
-  shorter than their window), and ``prefill`` of gemma3-4b and
-  internvl2-2b (its vision prefix sharded as tokens are), B = 4, T = 32;
+  shorter than their window) with float32 and with w8a16 weights, and
+  ``prefill`` of gemma3-4b and internvl2-2b (its vision prefix sharded
+  as tokens are), B = 4, T = 32;
 * 4 ranks as a (1, 4) mesh: the same ``decode`` cases (the dbrx MoE's
   dropped pairs counted a step), gemma3-4b past its rings' wrap (a
   30-token prompt and 11 new tokens in 42 slots: 42 does not divide by
-  4), the int8 KV cache, ``RAGServer(..., layout=)`` ``generate`` and
-  the w8a16 refusal; then the same ranks as a (2, 2) mesh
-  (``Mesh.reshape``): ``long`` (B = 1) of gemma3-4b and dbrx-132b and
-  ``prefill`` of every config.
+  4), the int8 KV cache, ``RAGServer(..., layout=)`` ``generate``,
+  w8a16 weights cut by ``shard_model`` and w8a16 with the int8 KV
+  cache; then the same ranks as a (2, 2) mesh (``Mesh.reshape``):
+  ``long`` (B = 1) of gemma3-4b and dbrx-132b, float32 and w8a16, and
+  ``prefill`` of every config, and w8a16 ``prefill`` of gemma3-4b and
+  recurrentgemma-9b.
+
+The w8a16 runs are held to the reference's one-device steps on its
+``quantize_tree`` of the same weights, and every rank's codes and scales
+to that tree's leaves sliced by its ``quantize_axes`` specs, bit for bit.
 
 Bars against the reference's one-device output on the same weights (the
 port's seeded init carried over by ``params_to_reference``) and inputs:
@@ -34,6 +41,7 @@ the reference's ``generate`` with ``NULL_LAYOUT`` on the same index (the
 layout changes placement, not the semantics, and the parent test process
 has one XLA device).
 """
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -47,11 +55,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
-from repro_torch.distributed.sharding import NamedSharding, make_layout  # noqa: E402
+from repro_torch.distributed.sharding import NamedSharding, PartitionSpec, make_layout  # noqa: E402
 from repro_torch.launch import AbstractMesh, spawn_local  # noqa: E402
 from repro_torch.models import params_to_reference, zoo  # noqa: E402
 from repro_torch.models.convert import shard_model  # noqa: E402
-from repro_torch.models.layers import quantize_model  # noqa: E402
+from repro_torch.models.layers import Linear, quantize_model  # noqa: E402
+from repro_torch.models.transformer import leaf_path  # noqa: E402
 from repro_torch.serve import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.serve.decode import cache_pspecs  # noqa: E402
 
@@ -60,6 +69,7 @@ TIMEOUT_S = 240
 DECODE_ARCHS = ("gemma3-4b", "dbrx-132b", "recurrentgemma-9b", "xlstm-350m")
 PREFILL_ARCHS = DECODE_ARCHS + ("internvl2-2b",)
 LONG_ARCHS = ("gemma3-4b", "dbrx-132b")
+W8_PREFILL_ARCHS = ("gemma3-4b", "recurrentgemma-9b")  # the RG-LRU's prefill reads its weights apart
 SHARDED_REF_ARCHS = ("gemma3-4b",)  # the reference's own sharded step in tier-1
 B, PROMPT, NEW, LENGTH, EVEN, T = 4, 6, 4, 13, 16, 32
 WRAP = (30, 11, 42)  # gemma3-4b past its rings' wrap: prompt, new tokens, cache length
@@ -124,20 +134,43 @@ def count_drops(model) -> list:
 
 
 def rank_decode(mesh, kind: str, arch: str, toks: np.ndarray, new: int, length: int,
-                dtype: str = "float32") -> dict:
-    """One rank's decode of ``toks`` (the whole batch) under ``kind``."""
+                dtype: str = "float32", w8a16: bool = False) -> dict:
+    """One rank's decode of ``toks`` (the whole batch) under ``kind``; with
+    ``w8a16`` its w8a16 codes and scales too (``quant_blocks``)."""
     cfg, layout = cfg_of(arch, dtype), make_layout(kind, mesh)
-    model = zoo.init_params(cfg, torch.Generator().manual_seed(0), device="cpu", layout=layout)
+    model = zoo.init_params(cfg, torch.Generator().manual_seed(0), device="cpu", layout=layout,
+                            w8a16=w8a16)
     rows = model.shard.batch.block(toks.shape[0])
     drops = count_drops(model)
     out = decode_run(model, make_serve_step(cfg, layout=layout), toks[rows], new, length)
     out.update(rows=(rows.start, rows.stop), drops=drops)
+    if w8a16:
+        out["blocks"] = quant_blocks(model)
     return out
 
 
-def rank_prefill(mesh, arch: str, dtype: str = "float32") -> dict:
+def quant_blocks(model) -> dict:
+    """A rank's w8a16 codes and scales by the reference's leaf paths: a
+    stacked leaf's block as the rank's layers' blocks stacked in unit
+    order, or its rows of scales as held (``layers.ScaleRows``)."""
+    got: dict = {}
+    for name, m in model.named_modules():
+        if isinstance(m, Linear) and m.w is None:
+            for leaf in ("w_q", "w_s"):
+                path, u = leaf_path(model.cfg, f"{name}.{leaf}")
+                got.setdefault(path, []).append((u, getattr(m, leaf), leaf == "w_s" and m.scale_rows))
+    out = {}
+    for path, held in got.items():
+        held.sort(key=lambda x: -1 if x[0] is None else x[0])
+        u, t, rows = held[0]
+        out[path] = (t if u is None or rows else torch.stack([x[1] for x in held])).numpy()
+    return out
+
+
+def rank_prefill(mesh, arch: str, dtype: str = "float32", w8a16: bool = False) -> dict:
     cfg, layout = cfg_of(arch, dtype), make_layout("prefill", mesh)
-    params = zoo.init_params(cfg, torch.Generator().manual_seed(0), device="cpu", layout=layout)
+    params = zoo.init_params(cfg, torch.Generator().manual_seed(0), device="cpu", layout=layout,
+                             w8a16=w8a16)
     batch = {k.split("/")[1]: v for k, v in inputs_of(arch).items() if k.startswith("prefill/")}
     r = make_prefill_step(cfg, layout=layout)(params, batch)
     rows = params.shard.batch.block(B)
@@ -153,6 +186,8 @@ def _rank_2x4(mesh, d: str):
     out = {f"decode_{a}": rank_decode(mesh, "decode", a, inputs_of(a)["decode"], NEW, LENGTH)
            for a in DECODE_ARCHS}
     out.update({f"prefill_{a}": rank_prefill(mesh, a) for a in ("gemma3-4b", "internvl2-2b")})
+    out.update({f"w8_decode_{a}": rank_decode(mesh, "decode", a, inputs_of(a)["decode"], NEW,
+                                              LENGTH, w8a16=True) for a in DECODE_ARCHS})
     return out
 
 
@@ -169,21 +204,25 @@ def _rank_1x4(mesh, d: str):
     finally:
         del os.environ["REPRO_KV_INT8"]
     out["generate"] = rank_generate(mesh, d)
-    # w8a16 under a mesh raises, in the step and in the placement
-    cfg, layout = cfg_of("gemma3-4b"), make_layout("decode", mesh)
-    one = quantize_model(model_of("gemma3-4b"))
-    refused = []
-    for call in (lambda: make_serve_step(cfg, layout=layout)(one, [], np.zeros((B, 1), np.int32), 0),
-                 lambda: shard_model(one, layout)):
-        try:
-            call()
-        except NotImplementedError as e:
-            refused.append(str(e))
-    out["w8a16_refused"] = refused
+    out.update({f"w8_decode_{a}": rank_decode(mesh, "decode", a, inputs_of(a)["decode"], NEW,
+                                              LENGTH, w8a16=True) for a in DECODE_ARCHS})
+    # w8a16 weights cut from a whole quantised model equal those drawn a leaf at a time
+    layout = make_layout("decode", mesh)
+    cut = shard_model(quantize_model(model_of("gemma3-4b")), layout)
+    out["w8_shard_model"] = quant_blocks(cut)
+    os.environ["REPRO_KV_INT8"] = "1"
+    try:
+        out["w8_int8"] = rank_decode(mesh, "decode", "gemma3-4b", inputs_of("gemma3-4b")["decode"],
+                                     NEW, LENGTH, w8a16=True)
+    finally:
+        del os.environ["REPRO_KV_INT8"]
     mesh22 = mesh.reshape((2, 2))
     out["long"] = {a: rank_decode(mesh22, "long", a, inputs_of(a)["long"], NEW, LENGTH)
                    for a in LONG_ARCHS}
+    out["w8_long"] = {a: rank_decode(mesh22, "long", a, inputs_of(a)["long"], NEW, LENGTH,
+                                     w8a16=True) for a in LONG_ARCHS}
     out["prefill"] = {a: rank_prefill(mesh22, a) for a in PREFILL_ARCHS}
+    out["w8_prefill"] = {a: rank_prefill(mesh22, a, w8a16=True) for a in W8_PREFILL_ARCHS}
     return out
 
 
@@ -307,6 +346,34 @@ REFERENCE = textwrap.dedent("""
             else:
                 kv = [np.asarray(a) for a in caches.pop(0)]
             out[f"prefill_{arch}/k{j}"], out[f"prefill_{arch}/v{j}"] = kv
+    # w8a16: the reference's quantize_tree of each tree, then its one-device steps,
+    # its leaves and their compute specs under decode (long's are the same)
+    from repro.models.layers import quantize_axes, quantize_tree
+    norm = lambda s: [None if e is None else ([e] if isinstance(e, str) else list(e)) for e in s]
+    qspecs = {}
+    for arch in spec["w8_blocks"]:
+        cfg, params = load(arch)
+        axes = zoo.param_axes(cfg)
+        qp, qaxes = quantize_tree(params, axes), quantize_axes(axes)
+        sp = tree_pspecs(qaxes, qp, make_layout("decode", mesh), stored=False)
+        flat_q = jax.tree_util.tree_flatten_with_path(qp)[0]
+        flat_s = dict(jax.tree_util.tree_flatten_with_path(
+            sp, is_leaf=lambda x: isinstance(x, P))[0])
+        for path, leaf in flat_q:
+            name = "/".join(key(k) for k in path)
+            if name.endswith(("w_q", "w_s")):
+                out[f"q_{arch}/{name}"] = np.asarray(leaf)
+                qspecs[f"{arch}/{name}"] = norm(flat_s[path])
+        for name, a2, length, new in spec["w8_decode"]:
+            if a2 == arch:
+                toks = np.load(f"{d}/in_{arch}_{name}.npy")
+                lg, nx, _ = decode(cfg, qp, toks, length, new)
+                out[f"w8_{name}_{arch}/logits"], out[f"w8_{name}_{arch}/tokens"] = lg, nx
+        if arch in spec["w8_prefill"]:
+            batch = {k: jnp.asarray(v) for k, v in np.load(f"{d}/in_{arch}_prefill.npz").items()}
+            r = jax.jit(make_prefill_step(cfg, NULL_LAYOUT))(qp, batch)
+            out[f"w8_prefill_{arch}/logits"] = np.asarray(r["logits"])
+    json.dump(qspecs, open(d + "/ref_qspecs.json", "w"))
     np.savez(d + "/ref_out.npz", **out)
     json.dump(notes, open(d + "/ref_notes.json", "w"))
 """)
@@ -336,8 +403,11 @@ def write_cases(d: str, sharded: tuple) -> None:
         if a in LONG_ARCHS:
             decode.append(("long", a, LENGTH, NEW))
     decode.append(("wrap", "gemma3-4b", WRAP[2], WRAP[1]))
+    w8 = [(name, a, LENGTH, NEW) for a in DECODE_ARCHS for name in ("decode", "long")
+          if name == "decode" or a in LONG_ARCHS]
     json.dump({"decode": decode, "prefill": PREFILL_ARCHS, "sharded": sharded, "even": EVEN,
-               "new": NEW}, open(os.path.join(d, "cases.json"), "w"))
+               "new": NEW, "w8_decode": w8, "w8_prefill": W8_PREFILL_ARCHS,
+               "w8_blocks": DECODE_ARCHS}, open(os.path.join(d, "cases.json"), "w"))
 
 
 def reference(d: str) -> subprocess.Popen:
@@ -364,11 +434,13 @@ def results(tmp_path_factory, tiny_engine, tiny_corpus):
     tiny_engine.save(os.path.join(d, "tiny.gann"))
     np.save(os.path.join(d, "queries.npy"), tiny_corpus[2])
     ref = reference(d)
-    try:
-        r24 = spawn_local(_rank_2x4, (2, 4), backend="gloo", device="cpu", timeout_s=TIMEOUT_S,
-                          args=(d,))
-        r14 = spawn_local(_rank_1x4, (1, 4), backend="gloo", device="cpu", timeout_s=TIMEOUT_S,
-                          args=(d,))
+    try:  # the two worlds at once, each on its own store
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            w24 = pool.submit(spawn_local, _rank_2x4, (2, 4), backend="gloo", device="cpu",
+                              timeout_s=TIMEOUT_S, args=(d,))
+            w14 = pool.submit(spawn_local, _rank_1x4, (1, 4), backend="gloo", device="cpu",
+                              timeout_s=TIMEOUT_S, args=(d,))
+            r24, r14 = w24.result(), w14.result()
     finally:
         wait(ref)
     from repro.configs import get_smoke_config as jsmoke
@@ -381,6 +453,7 @@ def results(tmp_path_factory, tiny_engine, tiny_corpus):
     want, _ = jsrv.generate(rag_requests(tiny_corpus[2], jcfg.vocab_size, JRequest),
                             max_new_tokens=RAG_NEW)
     return {"dir": d, "2x4": r24, "1x4": r14, "ref": dict(np.load(os.path.join(d, "ref_out.npz"))),
+            "qspecs": json.load(open(os.path.join(d, "ref_qspecs.json"))),
             "notes": json.load(open(os.path.join(d, "ref_notes.json"))), "generate": want}
 
 
@@ -537,18 +610,88 @@ def test_generate_under_the_decode_layout(results):
         np.testing.assert_array_equal(r["generate"], results["generate"])
 
 
-def test_w8a16_under_a_mesh_raises(results):
-    """w8a16 weights under a live mesh: the serve step and the placement
-    raise ``NotImplementedError`` naming ROADMAP."""
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+@pytest.mark.parametrize("mesh", ["2x4", "1x4"])
+def test_w8a16_decode_equals_reference(results, arch, mesh):
+    """w8a16 weights under ``decode`` (drawn a leaf at a time, each linear
+    quantised whole before it is cut): logits and greedy tokens equal the
+    reference's one-device step on its ``quantize_tree`` of the same
+    weights."""
+    ranks = [r[f"w8_decode_{arch}"] for r in results[mesh]]
+    held_decode(ranks, results["ref"], f"w8_decode_{arch}", f"{arch} w8a16 decode {mesh}")
+
+
+@pytest.mark.parametrize("arch", LONG_ARCHS)
+def test_w8a16_long_equals_reference(results, arch):
+    """w8a16 weights under ``long`` on (2, 2) against the reference's
+    one-device w8a16 step."""
+    ranks = [r["w8_long"][arch] for r in results["1x4"]]
+    held_decode(ranks, results["ref"], f"w8_long_{arch}", f"{arch} w8a16 long")
+
+
+@pytest.mark.parametrize("arch", W8_PREFILL_ARCHS)
+def test_w8a16_prefill_equals_reference(results, arch):
+    """w8a16 codes and scales stored ZeRO-sharded under ``prefill`` on
+    (2, 2), gathered a layer at a time: each rank's rows' logits against
+    the reference's one-device w8a16 prefill."""
     for r in results["1x4"]:
-        assert len(r["w8a16_refused"]) == 2 and all("ROADMAP" in m for m in r["w8a16_refused"])
+        got = r["w8_prefill"][arch]
+        close(got["logits"], results["ref"][f"w8_prefill_{arch}/logits"][slice(*got["rows"])],
+              f"{arch} w8a16 prefill")
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_w8a16_blocks_equal_reference_leaves(results, arch):
+    """Every rank's w8a16 codes and scales, on (2, 4), (1, 4) and (2, 2),
+    bit for bit the reference's ``quantize_tree`` leaves sliced by its
+    ``quantize_axes`` specs: a stacked leaf's scales (units, *out) carry
+    the axes of ``w[1:]``, so the units split over ``model`` and a rank
+    holds those rows (ROADMAP, Queue 3)."""
+    ref, specs = results["ref"], results["qspecs"]
+    runs = [("2x4", (2, 4), lambda r: r[f"w8_decode_{arch}"]),
+            ("1x4", (1, 4), lambda r: r[f"w8_decode_{arch}"]),
+            ("1x4", (2, 2), lambda r: r["w8_long"][arch] if arch in LONG_ARCHS else None)]
+    if arch == "gemma3-4b":
+        runs.append(("1x4", (1, 4), lambda r: {"blocks": r["w8_shard_model"]}))
+    quirk = 0
+    for mesh_name, shape, pick in runs:
+        mesh = AbstractMesh(("data", "model"), shape)
+        for rank, r in enumerate(results[mesh_name]):
+            got = pick(r)
+            if got is None:
+                continue
+            paths = {k.split("/", 1)[1] for k in specs if k.startswith(arch + "/")}
+            assert set(got["blocks"]) == paths, (arch, shape)
+            for path, block in got["blocks"].items():
+                want = ref[f"q_{arch}/{path}"]
+                spec = PartitionSpec(*[None if e is None else tuple(e)
+                                       for e in specs[f"{arch}/{path}"]])
+                part = want[NamedSharding(mesh, spec).block(want.shape, rank)]
+                assert block.dtype == part.dtype and np.array_equal(block, part), \
+                    (arch, shape, rank, path)
+                quirk += path.startswith("units/") and path.endswith("w_s") and spec[0] is not None
+    assert quirk > 0  # the stacked scales' quirk was held
+
+
+def test_w8a16_with_int8_kv_decode(results):
+    """w8a16 weights and the int8 KV cache together under ``decode`` on
+    (1, 4): logits and tokens equal one device's w8a16 + int8 KV decode
+    (the port's, held to the reference's in ``test_torch_lm_serve.py``)."""
+    os.environ["REPRO_KV_INT8"] = "1"
+    try:
+        one = decode_run(quantize_model(model_of("gemma3-4b")), make_serve_step(cfg_of("gemma3-4b")),
+                         inputs_of("gemma3-4b")["decode"], NEW, LENGTH)
+    finally:
+        del os.environ["REPRO_KV_INT8"]
+    assert "k_q" in results["1x4"][0]["w8_int8"]["caches"][0]
+    held = {"w8_int8/logits": one["logits"], "w8_int8/tokens": one["tokens"]}
+    held_decode([r["w8_int8"] for r in results["1x4"]], held, "w8_int8", "w8a16 + int8 kv")
 
 
 def test_refusals_without_a_live_mesh():
     """An ``AbstractMesh`` plans but does not execute: every serving entry
     point raises on one; a step given a layout kind it does not run
-    raises; w8a16 weights under a mesh raise; the train step refuses the
-    serving layouts."""
+    raises; the train step refuses the serving layouts."""
     from repro_torch.train.train_step import TrainHParams, make_train_step
 
     cfg = cfg_of("gemma3-4b")
@@ -566,8 +709,6 @@ def test_refusals_without_a_live_mesh():
         make_prefill_step(cfg, layout=make_layout("decode", mesh))
     with pytest.raises(NotImplementedError, match="not executed by this step"):
         make_serve_step(cfg, layout=make_layout("prefill", mesh))
-    with pytest.raises(NotImplementedError, match="w8a16"):
-        shard_model(quantize_model(model_of("gemma3-4b")), make_layout("decode", mesh))
 
 
 def test_uneven_blocks_as_xla_splits():

@@ -365,8 +365,9 @@ def test_checkpoint_restores_across_meshes_and_in_the_reference(results):
 def test_other_layouts_and_abstract_meshes_refuse_to_execute():
     """The train step executes only the train layout, and only on a live
     mesh; the serving steps execute their own layouts on a live mesh only
-    (an ``AbstractMesh`` plans, it joins no world), and w8a16 weights
-    under a mesh raise."""
+    (an ``AbstractMesh`` plans, it joins no world), and so does
+    ``shard_model``, w8a16 weights included (they execute on a live mesh:
+    ``test_torch_sharded_serve.py``)."""
     from repro_torch.models.convert import shard_model
     from repro_torch.models.layers import quantize_model
     from repro_torch.serve import make_prefill_step, make_serve_step
@@ -382,7 +383,7 @@ def test_other_layouts_and_abstract_meshes_refuse_to_execute():
         with pytest.raises(ValueError, match="joins no world"):
             step(cfg, layout=make_layout(kind, mesh))
     model = make_train_state(cfg, hp, torch.Generator().manual_seed(0), device="cpu").params
-    with pytest.raises(NotImplementedError, match="w8a16"):
+    with pytest.raises(ValueError, match="joins no world"):
         shard_model(quantize_model(model), make_layout("decode", mesh))
 
 
