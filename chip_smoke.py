@@ -59,6 +59,11 @@ each printing its own lines:
      cache dropped before each: gate at depth 1, gate unfused and fused at
      depth 4 and post at depth 4, each equal to the memory tier bit for
      bit, its reads reconciled with its n_ios;
+  host. the same queries on the host tier (``store_tier="host"``: the
+     1M records, 768 MB, in pinned host memory, gathered on the host and
+     uploaded through ``PinnedStaging``): gate unfused and fused and post,
+     each equal to the memory tier bit for bit; QPS, batch p50/p99, one
+     gate batch profiled with its host-to-device bytes a round;
   cache. the cache tiers on the 1M index at budgets of 1% and 10% of the
      records: memory tier (``visit_freq``) gate unfused and fused, disk
      tier (``bfs`` through the lazy view) gate at depths 1 and 4, and an
@@ -96,9 +101,11 @@ each printing its own lines:
   lm_kinds. the MoE, RG-LRU and xLSTM layer kinds through the same entry
      points, bf16 activations over float32 masters from a seeded
      ``torch.Generator("cuda")``, each model freed before the next:
-     recurrentgemma-9b (38 layers, 9,396,195,328 params: the reference's
-     tree, above its ``param_count()``) and xlstm-350m (24 layers,
-     492,737,584) at full width and depth, dbrx-132b at full width with
+     recurrentgemma-9b at full width with its depth cut from 38 to 12
+     layers for the run's time (3,674,509,312 params: the reference's
+     tree, above its ``param_count()``; a CUT), xlstm-350m at full width
+     with its depth cut from 24 to 12 layers likewise (297,880,600; a
+     CUT), dbrx-132b at full width with
      its depth cut from 40 to 2 layers (7,751,301,120 params, 31.0 GB);
      each: prefill B = 8, T = 2,048 beside its operations bound (xlstm's
      T cut only if its eager sLSTM scan would pass 30 s, estimated at
@@ -132,7 +139,8 @@ each printing its own lines:
      (losses and the step-300 checkpoint) under
      ``torch.use_deterministic_algorithms``, set for this part only; the
      save seconds and the file system; (b) gemma3-4b at
-     full width and depth, bf16 over float32 masters, Adafactor, B = 1,
+     full width, its depth cut to 12 of 34 layers for the run's time (a
+     CUT), bf16 over float32 masters, Adafactor, B = 1,
      T = 4,096 (TRAIN_4K's sequence, its global batch cut to 1), remat a
      unit, 5 steps: seconds a step beside the operations bound, tokens/s,
      peak memory, each step's loss, grad norm and lr, one step profiled;
@@ -168,8 +176,8 @@ each printing its own lines:
      ``RAGServer(..., layout=)`` ``generate`` in float32 over a
      20,000-vector engine (each rank its own, loaded from one file;
      prompts cut to 2 hits of 4 tokens and 4 tokens, printed), dbrx-132b (2 of 40 layers) and
-     xlstm-350m in float32 and recurrentgemma-9b (12 of 38 layers, a
-     CUT) in bf16 ``decode`` (16 steps each), gemma3-4b with w8a16 weights
+     xlstm-350m (12 of 24 layers, a CUT) in float32 and recurrentgemma-9b
+     (12 of 38 layers, a CUT) in bf16 ``decode`` (16 steps each), gemma3-4b with w8a16 weights
      at the lm_variants depth (12 layers) in float32 ``decode`` (a 2-token
      prompt, 3 greedy steps, against the lm_variants phase's one-device
      run within 1e-4 of the largest logit; the codes and scales a rank
@@ -177,7 +185,7 @@ each printing its own lines:
      ``long`` (B = 1, LONG_500K's 524,288
      slots filled with seeded K/V, 8 steps), gemma3-4b ``prefill`` (B = 8,
      T = 2,048, ZeRO-stored parameters gathered a layer at a time) and
-     xlstm-350m ``prefill`` (B = 8, T = 512).  Each run replays the tokens
+     xlstm-350m ``prefill`` (12 layers, B = 8, T = 512).  Each run replays the tokens
      one device was fed in the lm and lm_kinds phases (their saved
      references): logits within the bar of one device's (3e-2 of the
      largest in bf16, the LM tests' bar; 1e-4 in float32, the lm phases'
@@ -207,6 +215,20 @@ each printing its own lines:
   6. the brute-force PQ scan: every code scored by ``pq.adc_lookup``,
      filtered, top-10 by two levels of ``kernels.ops.topk_merge``;
   7. card vs CPU on a 20,000-vector index in all five modes;
+  cli. the reference's command-line surface, ported: each of
+     ``examples/torch_*.py`` and ``scripts/torch_*.py`` through its
+     ``main`` on the card at the reference's sizes — convert_index (build,
+     inspect, verify, shard + verify, merge + verify; the merged file
+     searches as the built one bit for bit), obs_report (``--prom`` ==
+     the live registry's text), quickstart (gate's reads below post's,
+     the disk tier's ids the memory tier's, reads + hits conserved across
+     cache budgets), filtered_search_demo (every family predicate-clean,
+     DRAM growing with R_max), rag_serve (tokens (4, 8), every passage
+     of category 3, the cache refreshed), train_lm (40 steps, then
+     resumed at 40 to 60, the loss falling in each), smoke_models (ALL
+     OK), smoke_core and diag_recall; each searching one's launches under
+     a ``cli_<name>`` path.  ``python3 chip_smoke.py --only cli`` runs it
+     alone;
   8. one JSON line of a round's stage B as the re-rank kernel and as the
      parent design (the standalone L2 kernel and the plain merge):
      launches, device and host microseconds, measured after phase 4's
@@ -228,6 +250,7 @@ import dataclasses
 import functools
 import gc
 import hashlib
+import io
 import json
 import math
 import os
@@ -332,7 +355,7 @@ LM_PARITY_BT, LM_CPU_PROMPT, LM_CPU_NEW = (2, 48), 16, 16
 # its own); the model that serves generate; (b)'s depth a config and its
 # prefill T, prompt and new tokens; the smoke configs of (c); the seconds
 # past which the sLSTM's prefill T is cut
-LM_KINDS = (("recurrentgemma-9b", None, 9_396_195_328), ("xlstm-350m", None, 492_737_584),
+LM_KINDS = (("recurrentgemma-9b", 12, 3_674_509_312), ("xlstm-350m", 12, 297_880_600),
             ("dbrx-132b", 2, 7_751_301_120))
 LM_KINDS_GENERATE = "recurrentgemma-9b"
 LM_KINDS_CPU_LAYERS = {"recurrentgemma-9b": 3, "xlstm-350m": 2, "dbrx-132b": 1}
@@ -361,6 +384,7 @@ TRAIN_LM = dict(steps=300, batch=8, seq_len=256)
 TRAIN_LM_HP = TrainHParams(peak_lr=3e-4, warmup=20, total_steps=300,
                            opt=OptConfig(name="adamw", weight_decay=0.01))
 TRAIN_BIG = ("gemma3-4b", 1, TRAIN_4K.seq_len, 5)
+TRAIN_BIG_DEPTH = 12  # (b)'s layers (of 34), cut for the whole smoke's time (PERF.md)
 TRAIN_CPU = (2, 1, 128)
 TRAIN_SMOKE = ("gemma3-4b", "recurrentgemma-9b", "xlstm-350m", "dbrx-132b")
 # the dist_train phase: the train phase's (a) config sharded over (2, 2) gloo
@@ -379,12 +403,13 @@ DIST_TRAIN_PLAN_ARCHS = ("gemma3-4b", "llama4-maverick-400b-a17b")
 # logit); the long caches' K/V seeded in chunks of DIST_SERVE_CHUNK slots
 DIST_SERVE_DECODE = (8, 64, 16, 2112)
 DIST_SERVE_LONG = (8, LONG_500K.seq_len)
-# each kind's depth (None: full) and activation dtype (None: the config's):
+# each kind's depth (None: full; lm_kinds' depth, for the whole smoke's time)
+# and activation dtype (None: the config's):
 # dbrx-132b and xlstm-350m decode in float32, where bf16 order noise neither
 # moves the MoE's routing nor is carried up by the sLSTM's exponential gates
 # past what tells a fault from noise (PERF.md)
 DIST_SERVE_KINDS = {"dbrx-132b": (2, "float32"), "recurrentgemma-9b": (12, None),
-                    "xlstm-350m": (None, "float32")}
+                    "xlstm-350m": (12, "float32")}
 # the depth gemma3-4b runs at in the dist_serve phase (its layers the full model's
 # first), cut with recurrentgemma-9b's above so that the whole smoke, the dryrun
 # phase included, stays within its time (PERF.md)
@@ -2241,9 +2266,11 @@ def lm_kinds_model(arch: str, depth, want: int, eng, q, targets, card: str, cap:
     dev = eng.device
     cfg = get_config(arch)
     if depth:
+        whole = cfg.param_count() * 4 / 1e9
+        why = (f"all {cfg.n_layers} would hold {whole:.0f} GB, past one card" if whole > 80
+               else "for the whole smoke's time (PERF.md)")
         log("lm_kinds", f"CUT: {arch} runs at full width with its depth cut from {cfg.n_layers} to "
-            f"{depth} layers ({want * 4 / 1e9:.2f} GB of float32 masters; all {cfg.n_layers} "
-            f"would hold {cfg.param_count() * 4 / 1e9:.0f} GB, past one card)")
+            f"{depth} layers ({want * 4 / 1e9:.2f} GB of float32 masters; {why})")
         cfg = dataclasses.replace(cfg, n_layers=depth)
     model, n_params, out = lm_init("lm_kinds", cfg, dev, card, want)
     if n_params != cfg.param_count():
@@ -2662,12 +2689,15 @@ def train_example(tmp: str, card: str) -> dict:
 
 
 def train_full_width(card: str) -> dict:
-    """(b) gemma3-4b at full width and depth: bf16 activations over float32
-    masters, Adafactor, per-unit remat, TRAIN_BIG's (B, T) for its steps."""
+    """(b) gemma3-4b at full width, its depth cut to TRAIN_BIG_DEPTH: bf16
+    activations over float32 masters, Adafactor, per-unit remat,
+    TRAIN_BIG's (B, T) for its steps."""
     arch, b, t, n_steps = TRAIN_BIG
     cfg = get_config(arch)
     log("train", f"CUT: (b) {arch} trains at TRAIN_4K's sequence ({t}) with its global batch cut "
-        f"from {TRAIN_4K.global_batch} to {b} (one card), for {n_steps} steps")
+        f"from {TRAIN_4K.global_batch} to {b} (one card), for {n_steps} steps, its depth cut from "
+        f"{cfg.n_layers} to {TRAIN_BIG_DEPTH} layers for the whole smoke's time")
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_BIG_DEPTH)
     hp = TrainHParams(peak_lr=3e-4, warmup=max(n_steps // 10, 1), total_steps=n_steps,
                       opt=OptConfig(name="adafactor"))
     torch.cuda.synchronize()
@@ -2699,7 +2729,7 @@ def train_full_width(card: str) -> dict:
     out = {"arch": arch, "params": n, "B": b, "T": t, "opt": "adafactor", "init_s": init_s,
            "steps": rows, "s_per_step": s_step, "bound_s": bound_s, "forward_ops": fwd,
            "tokens_per_s": b * t / s_step, "peak_allocated_gb": peak, "profile": prof}
-    log("train", f"(b) {arch} at full width and depth ({n:,} params), bf16 over float32 masters, "
+    log("train", f"(b) {arch} at full width, {cfg.n_layers} layers ({n:,} params), bf16 over float32 masters, "
         f"Adafactor, B={b} T={t}, remat a unit: {s_step:.3f} s a step (median of steps 2-{n_steps}) "
         f"against the operations bound {bound_s:.3f} s ({fwd / 1e12:.1f} TFLOP forward x 4 with "
         f"the recompute and the backward, at 989 TFLOP/s), {out['tokens_per_s']:,.0f} tokens/s; "
@@ -3633,8 +3663,9 @@ def dist_serve_rank(mesh, ref_dir: str) -> dict:
     done("gemma3-4b prefill")
     gc.collect()
     torch.cuda.empty_cache()
-    out["xlstm-350m prefill"] = serve_prefill(mesh22, get_config("xlstm-350m"),
-                                              load("xlstm-350m_prefill.pt"))
+    xlstm = dataclasses.replace(get_config("xlstm-350m"),
+                                n_layers=DIST_SERVE_KINDS["xlstm-350m"][0])
+    out["xlstm-350m prefill"] = serve_prefill(mesh22, xlstm, load("xlstm-350m_prefill.pt"))
     done("xlstm-350m prefill")
     return out
 
@@ -3649,7 +3680,9 @@ def dist_serve_phase(ref_dir: str, card: str, cap: Capture) -> dict:
     log("dist_serve", f"CUT: the phase runs gemma3-4b at full width with its depth cut from "
         f"{get_config(LM_ARCH).n_layers} to {DIST_SERVE_GEMMA_DEPTH} layers, and "
         f"recurrentgemma-9b's decode from {get_config('recurrentgemma-9b').n_layers} to "
-        f"{DIST_SERVE_KINDS['recurrentgemma-9b'][0]}, for the whole smoke's time (PERF.md)")
+        f"{DIST_SERVE_KINDS['recurrentgemma-9b'][0]}, xlstm-350m's decode and prefill from "
+        f"{get_config('xlstm-350m').n_layers} to {DIST_SERVE_KINDS['xlstm-350m'][0]}, for the "
+        "whole smoke's time (PERF.md)")
     log("dist_serve", f"CUT: gemma3-4b decode's {prompt}-token prompt is teacher-forced on one "
         f"device and each rank starts from its blocks of those caches (cache_blocks); the {new} "
         "greedy steps run sharded (each step costs about 200 collectives, 6-8 ms each with 4 "
@@ -3959,6 +3992,324 @@ def profile_batch(run, p50_ms: float, top: int = 8, parts: tuple = ()) -> dict:
     if parts:
         out["parts_device_ms_calls"] = per_part
     return out
+
+
+# ------------------------------------------------------------ the host tier
+def host_phase(path: str, q, targets, mem_runs: dict, card: str, cap: Capture) -> dict:
+    """The memory tier's queries on the host tier (``store_tier="host"``:
+    the records in pinned host memory, gathered on the host and uploaded
+    through ``PinnedStaging``), each run equal to the memory tier bit for
+    bit; one gate batch profiled, with the bytes it moved host to device."""
+    from repro_torch.store import HostOffloadRecordStore
+    from repro_torch.store.staging import PinnedStaging
+
+    t0 = time.perf_counter()
+    eng = GateANNEngine.load(path, store_tier="host")
+    load_s = time.perf_counter() - t0
+    store = eng.record_store
+    require(isinstance(store, HostOffloadRecordStore), f"host tier: {type(store).__name__}")
+    require(store.vectors.is_pinned() and store.neighbors.is_pinned(),
+            "host tier: the records are not in pinned memory")
+    pinned = store.vectors.nbytes + store.neighbors.nbytes
+    log("host", f"host tier: {store.vectors.shape[0]:,} records, {pinned / 2**20:.0f} MiB pinned "
+        f"(vectors {tuple(store.vectors.shape)} f32, neighbours {tuple(store.neighbors.shape)} "
+        f"i32), loaded in {load_s:.1f} s")
+    configs = {  # name -> (config, the memory-tier run it must equal)
+        "host_gate_unfused": (SearchConfig(mode="gate", **SEARCH), "gate_unfused"),
+        "host_gate_fused": (SearchConfig(mode="gate", use_fused_kernel=True, **SEARCH),
+                            "gate_fused"),
+        "host_post": (SearchConfig(mode="post", **SEARCH), "post"),
+    }
+    summary = {"load_s": load_s, "pinned_bytes": pinned}
+    for name, (cfg, mem_name) in configs.items():
+        eng.search(q[:BATCH], filter_kind="label", filter_params=targets[:BATCH],
+                   search_config=cfg)  # warm-up, untimed
+        run = run_search(eng, q, targets, cfg)
+        cap.launches[name] = run[4]
+        same_run(run, mem_runs[mem_name], f"{name} vs memory tier {mem_name}")
+        fused = cfg.use_fused_kernel
+        require_launches(cap, name, ("pq_lookup", "rerank") + (("fused_traversal",) if fused else ()),
+                         ("l2_dist", "plain_merges") + (() if fused else ("fused_traversal",)))
+        lat, st = run[3], run[2]
+        summary[name] = {"qps": N_QUERIES / float(lat.sum()),
+                         "p50_batch_ms": float(np.percentile(lat, 50) * 1e3),
+                         "p99_batch_ms": float(np.percentile(lat, 99) * 1e3),
+                         "mean_n_ios": float(st["n_ios"].float().mean()), "launches": run[4]}
+        r = summary[name]
+        log("host", f"{name}: QPS {r['qps']:.1f}  batch p50 {r['p50_batch_ms']:.2f} ms p99 "
+            f"{r['p99_batch_ms']:.2f} ms  mean n_ios {r['mean_n_ios']:.2f}  launches "
+            f"{json.dumps(run[4])}; == memory tier {mem_name} (ids, dists, six stats) on {card}")
+    # one gate batch: the bytes its fetches upload, and its rounds
+    uploads, real_upload = [0, 0], PinnedStaging.upload
+
+    def counted(self, buf):
+        uploads[0] += buf.numel() * buf.element_size()
+        uploads[1] += 1
+        return real_upload(self, buf)
+
+    cfg = configs["host_gate_unfused"][0]
+    PinnedStaging.upload = counted
+    try:
+        out = eng.search(q[:BATCH], filter_kind="label", filter_params=targets[:BATCH],
+                         search_config=cfg)
+        torch.cuda.synchronize()
+    finally:
+        PinnedStaging.upload = real_upload
+    rounds = int(out.stats.n_hops.max())
+    gate = summary["host_gate_unfused"]
+    gate["h2d_bytes_batch"], gate["h2d_copies_batch"], gate["rounds_batch"] = uploads[0], uploads[1], rounds
+    gate["h2d_bytes_round"] = uploads[0] / rounds
+    gate["profile"] = profile_batch(
+        lambda: eng.search(q[:BATCH], filter_kind="label", filter_params=targets[:BATCH],
+                           search_config=cfg), gate["p50_batch_ms"])
+    prof = gate["profile"]
+    log("host", f"host_gate_unfused, one batch of {BATCH}: {uploads[0]:,} B host to device in "
+        f"{uploads[1]} copies over {rounds} rounds ({gate['h2d_bytes_round']:,.0f} B a round: "
+        f"a round's W = {SEARCH['beam_width']} records a query, {DIM} f32 + {DEGREE} i32 each); "
+        f"profiled: {prof['device_busy_ms']:.2f} ms of kernels, {prof['device_launches']} launches, "
+        f"busy {prof['device_busy_share']:.3f} of the unprofiled p50 {gate['p50_batch_ms']:.2f} ms "
+        f"on {card}")
+    log("profile", f"host_gate_unfused, one batch of {BATCH} under torch.profiler on {card}: "
+        + json.dumps(prof))
+    print(json.dumps({"host": summary, "card": card}), flush=True)
+    del eng, store
+    gc.collect()
+    return summary
+
+
+# -------------------------------------------------------------- the cli phase
+CLI_ENTRIES = {  # name -> the port's entry point, beside the reference's
+    "convert_index": "scripts/torch_convert_index.py",
+    "quickstart": "examples/torch_quickstart.py",
+    "filtered_search_demo": "examples/torch_filtered_search_demo.py",
+    "rag_serve": "examples/torch_rag_serve.py",
+    "train_lm": "examples/torch_train_lm.py",
+    "obs_report": "scripts/torch_obs_report.py",
+    "smoke_core": "scripts/torch_smoke_core.py",
+    "diag_recall": "scripts/torch_diag_recall.py",
+    "smoke_models": "scripts/torch_smoke_models.py",
+}
+
+
+def load_entry(name: str):
+    """An entry point as a module, loaded by path (its ``main`` does not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"cli_{name}", REPO / CLI_ENTRIES[name])
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class Tee(io.TextIOBase):
+    """Standard output passed through and kept."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text: str) -> int:
+        self.out.write(text)
+        self.kept.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+@contextlib.contextmanager
+def counted_path(cap: Capture, path: str):
+    """The kernel launches inside the block, counted from 0 under
+    ``cap.launches[path]`` with its plain merges; ``pq_lookup`` and
+    ``rerank`` must have launched and the plain merge not."""
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    PLAIN_MERGES[0] = 0
+    yield
+    torch.cuda.synchronize()
+    cap.launches[path] = {**_build.LAUNCHES, "plain_merges": PLAIN_MERGES[0]}
+    require_launches(cap, path, ("pq_lookup", "rerank"), ("plain_merges",))
+
+
+def run_entry(mod, argv: list, cap: Capture | None = None, path: str | None = None):
+    """``mod.main(argv)`` on the card: its result and what it printed;
+    with ``path``, its launches counted there (``counted_path``)."""
+    tee = Tee(sys.stdout)
+    with counted_path(cap, path) if path else contextlib.nullcontext():
+        with contextlib.redirect_stdout(tee):
+            out = mod.main(argv)
+    return out, tee.kept.getvalue()
+
+
+def cli_convert_index(tmp: str, card: str, cap: Capture) -> dict:
+    """build from .npy files at the quickstart's N, inspect, verify; shard
+    into 4 and verify; merge and verify; the merged file searches as the
+    original bit for bit."""
+    from repro_torch.store import read_header
+
+    mod = load_entry("convert_index")
+    n, dim = 8_000, 32
+    corpus, labels = make_bigann_like(n, dim, seed=0), uniform_labels(n, 10, seed=0)
+    files = {k: os.path.join(tmp, f"{k}.npy") for k in ("corpus", "labels")}
+    np.save(files["corpus"], corpus)
+    np.save(files["labels"], labels)
+    idx = {k: os.path.join(tmp, f"cli_{k}.gann") for k in ("built", "sharded", "merged")}
+    out = {}
+
+    t0 = time.perf_counter()
+    with counted_path(cap, "cli_convert_index"):
+        rc, text = run_entry(mod, ["build", "--corpus", files["corpus"], "--labels",
+                                   files["labels"], "--out", idx["built"]])
+        require(rc == 0 and text == read_header(idx["built"]).describe() + "\n",
+                "convert_index build: its inspect text")
+        rc, text = run_entry(mod, ["inspect", "--index", idx["built"]])
+        require(rc == 0 and text.startswith("GateANN index v"), "convert_index inspect")
+        for name, argv in (("built", None),
+                           ("sharded", ["shard", "--index", idx["built"], "--out", idx["sharded"],
+                                        "--shards", "4"]),
+                           ("merged", ["merge", "--index", idx["sharded"], "--out", idx["merged"]])):
+            if argv:
+                rc, text = run_entry(mod, argv)
+                require(rc == 0, f"convert_index {argv[0]}: rc {rc}")
+            rc, text = run_entry(mod, ["verify", "--index", idx[name]])
+            require(rc == 0 and text.rstrip().endswith("verify: OK"),
+                    f"convert_index verify of the {name} file: rc {rc}")
+            out[f"verify_{name}"] = text.strip().splitlines()
+        require(read_header(idx["sharded"]).n_shards == 4, "convert_index shard: not 4 segments")
+    out["s"] = time.perf_counter() - t0
+    # the merged file's gate results equal the original's bit for bit
+    q = torch.from_numpy(make_queries(corpus, 64, seed=1)).cuda()
+    tgt = torch.from_numpy(np.random.default_rng(2).integers(0, 10, 64).astype(np.int32)).cuda()
+    cfg = SearchConfig(mode="gate", **SEARCH)
+    runs = [run_search(GateANNEngine.load(idx[k]), q, tgt, cfg) for k in ("built", "merged")]
+    same_run(runs[1], runs[0], "convert_index merged vs built, gate")
+    out["index"] = idx["built"]
+    log("cli", f"convert_index: build (N={n:,} D={dim}, the flags' defaults), inspect, verify, "
+        f"shard --shards 4 + verify, merge + verify: every rc 0 and verify OK; the merged file's "
+        f"gate results == the built file's bit for bit (ids, dists, six stats); "
+        f"{out['s']:.1f} s on {card}")
+    return out
+
+
+def cli_obs_report(index: str, tmp: str, card: str) -> dict:
+    """An artifact written after one disk-tier gate search with telemetry
+    on, rendered; ``--prom`` equals the live registry's exposition text
+    byte for byte."""
+    mod = load_entry("obs_report")
+    path = os.path.join(tmp, "cli_obs.json")
+    reg = obs.MetricsRegistry(enabled=True)
+    tracer = obs.trace.default_tracer()
+    with obs.use_registry(reg):
+        eng = GateANNEngine.load(index, store_tier="disk")
+        q = make_queries(make_bigann_like(8_000, 32, seed=0), 32, seed=1)
+        tracer.enable()
+        try:
+            out = eng.search(q, filter_kind="label", filter_params=np.zeros(32, np.int32),
+                             search_config=SearchConfig(mode="gate", search_l=100, beam_width=8))
+            out.ids.cpu()
+            obs.export.write_obs_json(path)
+        finally:
+            tracer.disable()
+            tracer.reset()
+        eng.measured_store().close()
+    t0 = time.perf_counter()
+    _, text = run_entry(mod, [path])
+    _, section = run_entry(mod, [path, "--section", "process"])
+    _, prom = run_entry(mod, [path, "--prom"])
+    s = time.perf_counter() - t0
+    for part in ("spans (trace.span_seconds)", "engine.search", "per-query breakdown",
+                 "I/O counters", "disk.records_read", "per-mode search split"):
+        require(part in text, f"obs_report: no {part!r} in the report")
+    require(section == text, "obs_report --section process: not the whole report")
+    require(prom == obs.export.to_prometheus(reg), "obs_report --prom != the live registry's text")
+    log("cli", f"obs_report: the report of one disk-tier gate search ({len(text.splitlines())} "
+        f"lines), --section, and --prom == to_prometheus() of the live registry byte for byte "
+        f"({len(prom):,} B); {s:.2f} s on {card}")
+    return {"s": s, "report_lines": len(text.splitlines()), "prom_bytes": len(prom)}
+
+
+def cli_train_lm(tmp: str, card: str) -> dict:
+    """``--steps 40``, then ``--steps 60`` on the same directory: the loss
+    falls in each and the second run resumes at 40."""
+    t0 = time.perf_counter()
+    mod = load_entry("train_lm")
+    ckpt = os.path.join(tmp, "cli_train_lm")
+    first, _ = run_entry(mod, ["--steps", "40", "--ckpt", ckpt])
+    rest, text = run_entry(mod, ["--steps", "60", "--ckpt", ckpt])
+    require(len(first) == 40 and first[-1] < first[0], "train_lm --steps 40: the loss did not fall")
+    require("resumed at step 40" in text and len(rest) == 20 and rest[-1] < rest[0],
+            "train_lm --steps 60: not resumed at 40, or the loss did not fall")
+    out = {"s": time.perf_counter() - t0, "losses_40": [first[0], first[-1]],
+           "losses_60": [rest[0], rest[-1]]}
+    log("cli", f"train_lm: --steps 40 loss {first[0]:.4f} -> {first[-1]:.4f}; --steps 60 resumed "
+        f"at 40, loss {rest[0]:.4f} -> {rest[-1]:.4f}; {out['s']:.1f} s on {card}")
+    return out
+
+
+def cli_phase(tmp: str, card: str, cap: Capture) -> dict:
+    """Each entry point of the reference's command-line surface, ported,
+    through its ``main`` on the card at the reference's sizes."""
+    t_phase = time.perf_counter()
+    summary = {"convert_index": cli_convert_index(tmp, card, cap)}
+    summary["obs_report"] = cli_obs_report(summary["convert_index"].pop("index"), tmp, card)
+
+    t0 = time.perf_counter()
+    res, _ = run_entry(load_entry("quickstart"), [], cap, "cli_quickstart")
+    modes = {r["mode"]: r for r in res["modes"]}
+    require(modes["gate"]["ios"] < modes["post"]["ios"], "quickstart: gate's ios/q not below post's")
+    require(all(r["match"] for r in res["disk"]), "quickstart: a disk mode's ids != memory's")
+    for r in res["cache"]:
+        require(np.array_equal(r["n_ios"] + r["n_cache_hits"], res["cache"][0]["n_ios"]),
+                f"quickstart: {r['records']} cached records: n_ios + n_cache_hits != uncached n_ios")
+    summary["quickstart"] = {"s": time.perf_counter() - t0,
+                             **{m: {k: r[k] for k in ("recall", "ios", "tunnels")}
+                                for m, r in modes.items()}}
+    log("cli", f"quickstart: gate ios/q {modes['gate']['ios']:.1f} < post {modes['post']['ios']:.1f}; "
+        "ids==mem True for post and gate off the file; n_ios + n_cache_hits == the uncached n_ios "
+        f"at 0/256/1,024 records; {summary['quickstart']['s']:.1f} s on {card}")
+
+    t0 = time.perf_counter()
+    res, _ = run_entry(load_entry("filtered_search_demo"), [], cap, "cli_filtered_search_demo")
+    require(all(r["clean"] for r in res["families"]), "demo: a family is not predicate-clean")
+    dram = [r["dram_bytes"] for r in res["rmax"]]
+    require(all(a < b for a, b in zip(dram, dram[1:])), f"demo: DRAM bytes {dram} do not grow")
+    summary["filtered_search_demo"] = {"s": time.perf_counter() - t0, "dram_bytes": dram}
+    log("cli", f"filtered_search_demo: all {len(res['families'])} families predicate-clean=True; "
+        f"R_max DRAM bytes {dram} grow with R_max; {summary['filtered_search_demo']['s']:.1f} s "
+        f"on {card}")
+
+    t0 = time.perf_counter()
+    res, _ = run_entry(load_entry("rag_serve"), [], cap, "cli_rag_serve")
+    require(tuple(res["tokens"].shape) == (4, 8), f"rag_serve: tokens {res['tokens'].shape}")
+    hit = res["ids"][res["ids"] >= 0]
+    require(hit.size > 0 and bool((res["labels"][hit] == 3).all()),
+            "rag_serve: a retrieved passage is not of category 3")
+    require(res["report_after"]["cache_refreshes"] > 0, "rag_serve: the cache never refreshed")
+    summary["rag_serve"] = {"s": time.perf_counter() - t0, "report_after": res["report_after"]}
+    log("cli", f"rag_serve: tokens (4, 8); all {hit.size} retrieved passages of category 3; "
+        f"after the second retrieve {json.dumps(res['report_after'])}; "
+        f"{summary['rag_serve']['s']:.1f} s on {card}")
+
+    summary["train_lm"] = cli_train_lm(tmp, card)
+
+    t0 = time.perf_counter()
+    mod = load_entry("smoke_models")
+    (ok, rows), text = run_entry(mod, [])
+    require(ok and len(rows) == len(mod.ARCH_IDS)
+            and text.rstrip().endswith("ALL OK"), "smoke_models: not ALL OK")
+    summary["smoke_models"] = {"s": time.perf_counter() - t0, "archs": len(rows)}
+    for name in ("smoke_core", "diag_recall"):
+        t0 = time.perf_counter()
+        rows, _ = run_entry(load_entry(name), [], cap, f"cli_{name}")
+        require(len(rows) == 4, f"{name}: {len(rows)} rows")
+        summary[name] = {"s": time.perf_counter() - t0}
+    log("cli", f"smoke_models ALL OK over {summary['smoke_models']['archs']} archs "
+        f"({summary['smoke_models']['s']:.1f} s); smoke_core ({summary['smoke_core']['s']:.1f} s) and "
+        f"diag_recall ({summary['diag_recall']['s']:.1f} s) ran to completion on {card}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    paths = {k: v for k, v in cap.launches.items() if k.startswith("cli_")}
+    log("cli", f"launches by path: {json.dumps(paths)}; phase {summary['phase_s']:.1f} s on {card}")
+    print(json.dumps({"cli": summary, "card": card}), flush=True)
+    return summary
 
 
 # ---------------------------------------------------------------- phase 7
@@ -4277,13 +4628,17 @@ def kernel_line(cap: Capture) -> list[dict]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="index size (SIFT1M: 1,000,000)")
-    ap.add_argument("--only", choices=("dist_serve", "dryrun"),
+    ap.add_argument("--only", choices=("dist_serve", "dryrun", "cli"),
                     help="run one phase alone, its one-device references included (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+
+    def elapsed(phase: str) -> None:
+        log("time", f"{phase} done, {time.perf_counter() - t_start:.1f} s into the run")
+
     # cuBLAS's deterministic workspace, set before the first product: the
     # train phase's resume check runs under torch.use_deterministic_algorithms
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -4309,6 +4664,11 @@ def main(argv=None) -> int:
         dryrun_phase(card)
         log("done", f"{time.perf_counter() - t_start:.1f} s in all")
         return 0
+    if args.only == "cli":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=index_dir()) as tmp:
+            cli_phase(tmp, card, Capture())
+        log("done", f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
     if args.only == "dist_serve":
         with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=index_dir()) as tmp:
             t0 = time.perf_counter()
@@ -4324,10 +4684,12 @@ def main(argv=None) -> int:
     check_fused(dev, rng)
     check_scan(dev, args.n, rng)
     check_topk(dev, rng)
+    elapsed("kernels")
 
     cap = Capture()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=index_dir()) as tmp:
         built = build_phase(tmp, dev, card, cap, min(BUILD_N, args.n))
+        elapsed("build")
         # phase 3 keeps the 48 + 16 graph: a Vamana graph at 1M builds within
         # the run's time, but its gate recall@10 at SEARCH falls below this
         # smoke's garbage detector (PERF.md, Findings)
@@ -4339,6 +4701,7 @@ def main(argv=None) -> int:
             log("index", f"N cut from 1,000,000 to {args.n:,} (--n)")
         path = os.path.join(tmp, "sift1m_like.gann")
         index = build_index(path, args.n, dev)
+        elapsed("index")
         t0 = time.perf_counter()
         eng = GateANNEngine.load(path)
         torch.cuda.synchronize()
@@ -4354,23 +4717,41 @@ def main(argv=None) -> int:
         gt = ground_truth(x, torch.from_numpy(index["labels"]).to(dev), q, targets)
         del index, x
         mem_runs = search_phase(eng, q, targets, gt, card, cap)
+        elapsed("search")
         dist_phase(tmp, path, q, targets, mem_runs, card, cap)
+        elapsed("dist")
         ssd_phase(path, q, targets, mem_runs, card, cap)
+        elapsed("ssd")
+        host_phase(path, q, targets, mem_runs, card, cap)
+        elapsed("host")
         cache_phase(eng, path, q, targets, mem_runs, card, cap)
+        elapsed("cache")
         serve_phase(eng, path, q, targets, card, cap)
+        elapsed("serve")
         ref_dir = os.path.join(tmp, "dist_serve")
         os.makedirs(ref_dir)
         lm_phase(eng, q, targets, card, cap, ref_dir)
+        elapsed("lm")
         lm_kinds_phase(eng, q, targets, card, cap, ref_dir)
+        elapsed("lm_kinds")
         lm_variants_phase(card, ref_dir)
+        elapsed("lm_variants")
         train_phase(tmp, card)
+        elapsed("train")
         dist_train_phase(tmp, card)
+        elapsed("dist_train")
         dist_serve_phase(ref_dir, card, cap)
+        elapsed("dist_serve")
         dryrun_phase(card)
+        elapsed("dryrun")
         scan_phase(eng, q, targets, gt, card, cap)
+        elapsed("scan")
         del eng, mem_runs
         torch.cuda.empty_cache()
         parity_phase(tmp, dev)
+        elapsed("parity")
+        cli_phase(tmp, card, cap)
+        elapsed("cli")
 
     rows = kernel_line(cap)
     for r in rows:

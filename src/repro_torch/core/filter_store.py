@@ -131,6 +131,9 @@ def pack_tags(tag_lists: Sequence[Sequence[int]], vocab_size: int) -> np.ndarray
     return out
 
 
+pack_query_tags = pack_tags
+
+
 def match_all(n: int | None = None) -> CheckFn:
     """Unfiltered search (selectivity 1.0)."""
 

@@ -23,8 +23,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import pq_lookup as pqk
 
 
@@ -143,3 +145,23 @@ def train_pq(vectors: torch.Tensor, *, n_chunks: int = 32, n_centroids: int = 25
     ])
     return PQCodec(books=books, n_chunks=n_chunks, n_centroids=n_centroids)
 
+
+def pq_memory_bytes(n: int, n_chunks: int = 32) -> int:
+    """Paper Table 2: PQ vectors = N * 32 B at the default 32 chunks."""
+    return n * n_chunks
+
+
+def train_pq_numpy(vectors: np.ndarray, n_chunks: int = 32, n_centroids: int = 256,
+                   iters: int = 8, seed: int = 0, device=None) -> PQCodec:
+    """Convenience host-side wrapper (samples big corpora before training):
+    past 65,536 rows the reference's sample (``default_rng(seed).choice``),
+    then ``train_pq`` on ``device`` (the card unless the caller asks for
+    the CPU) with a ``torch.Generator`` seeded from ``seed``."""
+    dev = resolve_device(device)
+    sample = vectors
+    if vectors.shape[0] > 65536:
+        idx = np.random.default_rng(seed).choice(vectors.shape[0], 65536, replace=False)
+        sample = vectors[idx]
+    return train_pq(torch.from_numpy(np.asarray(sample, dtype=np.float32)).to(dev),
+                    n_chunks=n_chunks, n_centroids=n_centroids, iters=iters,
+                    generator=torch.Generator(device=dev).manual_seed(seed))

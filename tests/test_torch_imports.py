@@ -1,9 +1,11 @@
 """Import guard: the port reaches neither JAX nor the reference package.
 
-Every module of ``repro_torch``, and ``chip_smoke.py`` up to its
-``main``, is imported in a fresh interpreter where ``jax`` and ``repro``
-are poisoned (``sys.modules[name] = None`` makes any import of them
-raise).  Importing builds no kernel.
+Every module of ``repro_torch``, ``chip_smoke.py`` up to its ``main``,
+and every entry point ``examples/torch_*.py`` and ``scripts/torch_*.py``
+(loaded as a module: its ``main`` does not run) is imported in a fresh
+interpreter where ``jax`` and ``repro`` are poisoned
+(``sys.modules[name] = None`` makes any import of them raise).
+Importing builds no kernel.
 """
 import os
 import subprocess
@@ -17,7 +19,7 @@ pytest.importorskip("torch")
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 GUARD = textwrap.dedent("""
-    import importlib, importlib.util, pkgutil, sys
+    import glob, importlib, importlib.util, os, pkgutil, sys
     for name in ("jax", "jaxlib", "repro"):
         sys.modules[name] = None
     sys.path.insert(0, {src!r})
@@ -29,6 +31,14 @@ GUARD = textwrap.dedent("""
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     assert callable(smoke.main)
+    for folder in ("examples", "scripts"):
+        for path in sorted(glob.glob(os.path.join({repo!r}, folder, "torch_*.py"))):
+            name = "entry." + folder + "." + os.path.basename(path)[:-3]
+            spec = importlib.util.spec_from_file_location(name, path)
+            entry = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(entry)
+            assert callable(entry.main), path
+            names.append(name)
     from repro_torch.kernels import _build
     assert not _build._LIBS, "a kernel was built or loaded at import time"
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
@@ -70,15 +80,26 @@ EXPECTED = {
     "repro_torch.distributed.fault_tolerance", "repro_torch.distributed.sharding",
 }
 
+# the reference's command-line surface in the port, each loaded without
+# running its main
+ENTRY_POINTS = {
+    *(f"entry.examples.torch_{m}" for m in (
+        "quickstart", "filtered_search_demo", "rag_serve", "train_lm")),
+    *(f"entry.scripts.torch_{m}" for m in (
+        "convert_index", "obs_report", "smoke_core", "diag_recall", "smoke_models")),
+}
+
 
 def test_port_imports_neither_jax_nor_repro():
-    code = GUARD.format(src=os.path.join(REPO, "src"), smoke=os.path.join(REPO, "chip_smoke.py"))
+    code = GUARD.format(src=os.path.join(REPO, "src"), smoke=os.path.join(REPO, "chip_smoke.py"),
+                        repo=REPO)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 40 and EXPECTED <= names, sorted(EXPECTED - names)
+    assert ENTRY_POINTS <= names, sorted(ENTRY_POINTS - names)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
