@@ -31,8 +31,9 @@ Telemetry, as the reference's (``repro_torch.obs``): every ``search``
 counts one ``search.dispatch{mode,tier,pipelined}`` and runs inside an
 ``engine.search`` span; with the registry enabled it also folds the
 batch's stats into the ``search.*`` families, which copies them to the
-host (one copy, so on the card the span covers the device work).  With
-telemetry off a search adds no sync, no copy and no device launch.
+host (one copy, so on the card the span covers the device work), and has
+the loop count the nodes it scores (``search.scored``).  With telemetry
+off a search adds no sync, no copy and no device launch.
 """
 from __future__ import annotations
 
@@ -516,10 +517,12 @@ class GateANNEngine:
                     visit_counts=visit_counts,
                     submit=submit,
                     drain=drain,
+                    count_scored=reg.enabled,
                 )
                 if reg.enabled:  # the only host copy telemetry adds
                     obs.stats.record_search_stats(reg, out.stats, mode=cfg.mode,
-                                                  tier=self.config.store_tier)
+                                                  tier=self.config.store_tier,
+                                                  scored=out.n_scored)
         except BaseException:
             # a failure with pipelined rounds in flight: their tokens would
             # pin reader slots until close(), so drain or cancel them here

@@ -50,15 +50,39 @@ bit-identical with or without a cache.
 **Telemetry**: the reference counts ``search.traces`` here, once per jit
 trace of the loop (which loop variant compiled).  Eager PyTorch traces
 and compiles nothing, so the port has no trace to count and leaves the
-family out; a per-call count is ``search.dispatch`` in the engine.
+family out; a per-call count is ``search.dispatch`` in the engine.  The
+port's own, which the reference has not (``PORT_FAMILIES``):
+
+  * ``search.rounds{mode}`` counts the call's rounds (loop iterations;
+    every row hops together, so it is any row's ``n_hops``), with the
+    default registry enabled;
+  * ``search.round_seconds{phase}``: while the process tracer is on, the
+    host seconds of each phase of a round (``PHASES``), summed over the
+    call's rounds in locals and observed once a call.  ``stage_a``: beam
+    selection, the filter check, masks and accounting (on the fused path
+    the accounting; the kernel selects the beam inside ``expand``);
+    ``fetch``: ``store.fetch``, or ``submit`` and ``drain``; ``rerank``:
+    the retire into the result heap; ``expand``: the new candidates, their
+    ADC and the insert, or the fused call; ``sync``: the loop condition's
+    host sync.  A round costs five ``perf_counter`` reads and no registry
+    call;
+  * ``search.scored`` (counted by ``obs.stats.record_search_stats``): new
+    candidates given a PQ distance, summed on the device only when the
+    caller passes ``count_scored`` (the engine does when its registry is
+    enabled), as ``SearchOutput.n_scored``.
+
+With the tracer and the registry off the loop reads no clock and launches
+nothing for telemetry; the tracer's ``enabled`` is read once a call.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import frontier as fr
 from repro_torch.core.filter_store import CheckFn
 from repro_torch.core.neighbor_store import NeighborStore
@@ -67,6 +91,11 @@ from repro_torch.kernels import l2_dist as l2k
 from repro_torch.kernels import pq_lookup as pqk
 
 MODES = ("gate", "post", "early", "pre_naive", "unfiltered")
+# the phases of a round, in ``search.round_seconds{phase}``
+PHASES = ("stage_a", "fetch", "rerank", "expand", "sync")
+STAGE_A, FETCH, RERANK, EXPAND, SYNC = range(len(PHASES))
+# the port's search.* families that the reference has not
+PORT_FAMILIES = ("search.rounds", "search.scored")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +132,44 @@ class SearchOutput(NamedTuple):
     # (N,) per-node fetch-path visit counts on top of the caller's
     # ``visit_counts``; None when counting is off
     visit_counts: torch.Tensor | None = None
+    # (B,) int32 new candidates given a PQ distance; None unless
+    # ``count_scored``
+    n_scored: torch.Tensor | None = None
+
+
+class _RoundClock:
+    """Host seconds of a call's rounds by phase: ``lap(phase)`` adds the
+    time since the last lap to ``phase``."""
+
+    __slots__ = ("sums", "t")
+
+    def __init__(self):
+        self.sums = [0.0] * len(PHASES)
+        self.t = time.perf_counter()
+
+    def lap(self, phase: int) -> None:
+        t = time.perf_counter()
+        self.sums[phase] += t - self.t
+        self.t = t
+
+    def publish(self, reg) -> None:
+        for name, s in zip(PHASES, self.sums):
+            reg.histogram("search.round_seconds", phase=name).observe(s)
+
+
+class _NoClock:
+    """The round clock while the tracer is off: reads nothing."""
+
+    __slots__ = ()
+
+    def lap(self, phase: int) -> None:
+        pass
+
+    def publish(self, reg) -> None:
+        pass
+
+
+_NO_CLOCK = _NoClock()
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
@@ -123,6 +190,7 @@ def filtered_search(
     visit_counts: torch.Tensor | None = None,  # (N,) f32 running fetch counters
     submit=None,  # asynchronous pair: (B, W) ids -> (token, nbrs (B, W, R))
     drain=None,  # (token, ids, live) -> vecs (B, W, D)
+    count_scored: bool = False,  # sum new candidates given a PQ distance (n_scored)
 ) -> SearchOutput:
     b = queries.shape[0]
     n = codes.shape[0]
@@ -155,6 +223,7 @@ def filtered_search(
 
     # the caller's counters, accumulated on a copy
     vc = None if visit_counts is None else visit_counts.to(dev, torch.float32, copy=True)
+    scored = zeros.clone() if count_scored else None
 
     def account(stats, sel_ids, fetch_mask, tunnel_mask, exact_mask):
         """A round's stats: its fetches split into cache hits and slow-tier
@@ -193,6 +262,8 @@ def filtered_search(
         new = torch.cat([disk_nbrs.reshape(b, -1), tun_nbrs.reshape(b, -1)], dim=-1)
         new = torch.where((new >= 0) & ~visited.gather(1, slot(new)), new, fr.INVALID)
         visited.scatter_(1, slot(new), True)
+        if scored is not None:
+            scored.add_(_count(new >= 0))
         return new
 
     def stage_a(frontier, stats):
@@ -228,37 +299,59 @@ def filtered_search(
         live = rr >= 0
         dp = rr % depth
         vecs = drain(p_tok[dp], p_fids[dp], live)
+        clock.lap(FETCH)
         if live:
             results, stats = retire(results, stats, p_ids[dp], p_rm[dp], vecs)
+        clock.lap(RERANK)
         return results, stats
 
-    def finish(results, stats, r):
+    def finish(results, stats, r, rounds):
         if pipelined:  # flush: retire the rounds still in flight, oldest first
             for j in range(depth - 1):
                 results, stats = retire_round(r - (depth - 1) + j, results, stats)
-        return SearchOutput(ids=results.ids, dists=results.dists, stats=stats, visit_counts=vc)
+        reg = obs.default_registry()
+        if reg.enabled:
+            reg.counter("search.rounds", mode=mode).inc(rounds)
+        clock.publish(reg)
+        return SearchOutput(ids=results.ids, dists=results.dists, stats=stats, visit_counts=vc,
+                            n_scored=scored)
 
     use_fused = config.use_fused_kernel and ftk.fused_supported(
         l=L, width=W, m=W * (store.degree + r_max), c=codes.shape[1], k=lut.shape[2], device=dev
     )
 
-    r = 0  # round index: every row hops together, so this is n_hops[0]
+    def more(work):
+        """The loop's condition, on the host: its one sync a round."""
+        go = bool(work.any() & (stats.n_hops < config.max_hops).all())
+        clock.lap(SYNC)
+        return go
+
+    r = 0  # pipelined rounds' index (every row hops together: n_hops[0])
+    rounds = 0  # loop iterations, on every path
+    clock = _RoundClock() if obs.trace.default_tracer().enabled else _NO_CLOCK
     if not use_fused:
-        while bool(fr.has_unexpanded(frontier).any() & (stats.n_hops < config.max_hops).all()):
+        while more(fr.has_unexpanded(frontier)):
+            rounds += 1
             frontier, stats, sel_ids, fetch_ids, tunnel_mask, result_mask = stage_a(frontier, stats)
+            clock.lap(STAGE_A)
             if not pipelined:
                 vecs, disk_nbrs = store.fetch(fetch_ids)
+                clock.lap(FETCH)
                 results, stats = retire(results, stats, sel_ids, result_mask, vecs)
+                clock.lap(RERANK)
                 frontier = expand(frontier, sel_ids, tunnel_mask, disk_nbrs)
+                clock.lap(EXPAND)
                 continue
             # stage A: dispatch this round's read; its neighbours come back now
             token, disk_nbrs = submit(fetch_ids)
+            clock.lap(FETCH)
             frontier = expand(frontier, sel_ids, tunnel_mask, disk_nbrs)
+            clock.lap(EXPAND)
             wp = r % depth
             p_ids[wp], p_fids[wp], p_rm[wp], p_tok[wp] = sel_ids, fetch_ids, result_mask, token
             results, stats = retire_round(r - (depth - 1), results, stats)
             r += 1
-        return finish(results, stats, r)
+        return finish(results, stats, r, rounds)
 
     def fused_call(fids, fds, fexp, fpass, new_ids, new_passes):
         return ftk.fused_traversal_round(
@@ -270,25 +363,33 @@ def filtered_search(
     empty = torch.zeros((b, 0), dtype=torch.int32, device=dev)
     rnd = fused_call(frontier.ids, frontier.dists, frontier.expanded,
                      filter_check(frontier.ids), empty, empty.bool())
-    while bool(rnd.valid.any() & (stats.n_hops < config.max_hops).all()):
+    clock.lap(EXPAND)
+    while more(rnd.valid):
+        rounds += 1
         stats = account(stats, rnd.sel_ids, rnd.fetch_mask, rnd.tunnel_mask, rnd.exact_mask)
+        clock.lap(STAGE_A)
         if not pipelined:
             vecs, disk_nbrs = store.fetch(rnd.fetch_ids)
+            clock.lap(FETCH)
             results, stats = retire(results, stats, rnd.sel_ids, rnd.result_mask, vecs)
+            clock.lap(RERANK)
             new = fresh_candidates(rnd.sel_ids, rnd.tunnel_mask, disk_nbrs)
             rnd = fused_call(rnd.frontier_ids, rnd.frontier_dists, rnd.frontier_expanded,
                              rnd.frontier_passes, new, filter_check(new))
+            clock.lap(EXPAND)
             continue
         # the kernel call sits between this round's submit and the oldest
         # round's drain, as in the unfused pipeline
         token, disk_nbrs = submit(rnd.fetch_ids)
+        clock.lap(FETCH)
         new = fresh_candidates(rnd.sel_ids, rnd.tunnel_mask, disk_nbrs)
         nrnd = fused_call(rnd.frontier_ids, rnd.frontier_dists, rnd.frontier_expanded,
                           rnd.frontier_passes, new, filter_check(new))
+        clock.lap(EXPAND)
         wp = r % depth
         p_ids[wp], p_fids[wp], p_rm[wp], p_tok[wp] = (rnd.sel_ids, rnd.fetch_ids,
                                                       rnd.result_mask, token)
         results, stats = retire_round(r - (depth - 1), results, stats)
         rnd = nrnd
         r += 1
-    return finish(results, stats, r)
+    return finish(results, stats, r, rounds)

@@ -1,8 +1,8 @@
 """Exporters: Prometheus text format and JSON snapshots.
 
 Port of ``repro.obs.export``, line for line: the same text and the same
-JSON layout, so ``scripts/obs_report.py`` renders either package's
-artifact.  Both render the same ``MetricsRegistry.snapshot()`` dict, so
+JSON layout (a span carries ``start_ns`` besides), so
+``scripts/obs_report.py`` renders either package's artifact.  Both render the same ``MetricsRegistry.snapshot()`` dict, so
 a scrape and an ``--obs-json`` artifact always agree bit-exactly.  No
 third-party client library.
 
@@ -11,7 +11,11 @@ JSON layout (``to_json``):
     {"schema_version": 1,
      "enabled": true,
      "families": {<name>: {"kind": ..., "children": [...], "total": ...}},
-     "spans": {<thread>: [{"name", "labels", "start", "dur_s"}, ...]}}
+     "spans": {<thread>: [{"name", "labels", "start", "start_ns", "dur_s"}, ...]}}
+
+``start`` is on ``time.perf_counter``; ``start_ns`` is the same instant on
+the wall clock, the one ``torch.profiler`` stamps its events with, so the
+spans lay beside a profiler trace (``obs.trace``'s module docstring).
 
 ``write_obs_json`` wraps one or more of those sections into a single
 artifact — benchmarks export the process registry/tracer as

@@ -1,7 +1,8 @@
 """Process-wide metrics registry: counters, gauges, log-scale histograms.
 
 Port of ``repro.obs.registry``, line for line (the module never touched
-JAX; the port keeps its own copy so it imports nothing of ``repro``).
+JAX; the port keeps its own copy so it imports nothing of ``repro``), plus
+a histogram's batch observe (``observe_many``).
 Every hot layer of the port — the disk store's host reads, the engine's
 search dispatch, the cache tiers, the serving front end's admission and
 queue path — publishes named metric *families* here, and the exporters
@@ -43,6 +44,8 @@ import contextlib
 import math
 import os
 import threading
+
+import numpy as np
 
 
 class Counter:
@@ -130,7 +133,7 @@ class Histogram:
 
     kind = "histogram"
     __slots__ = ("labels", "edges", "_registry", "_lock", "_counts",
-                 "_sum", "_count", "_min", "_max")
+                 "_sum", "_count", "_min", "_max", "_edges_arr")
 
     def __init__(self, registry: "MetricsRegistry", labels: dict,
                  edges: list[float]):
@@ -143,6 +146,7 @@ class Histogram:
         self._count = 0
         self._min = math.inf
         self._max = -math.inf
+        self._edges_arr = None  # ``edges`` as an array, for ``observe_many``
 
     def observe(self, v: float) -> None:
         if not self._registry.enabled:
@@ -157,6 +161,32 @@ class Histogram:
                 self._min = v
             if v > self._max:
                 self._max = v
+
+    def observe_many(self, values) -> None:
+        """``observe`` each of an array's values, in order, under one lock:
+        the same buckets (``searchsorted(side="left")`` is ``bisect_left``),
+        and sum, count, min and max exactly as one ``observe`` a value gives
+        them (the sum adds the values one after another, as ``observe``
+        does)."""
+        if not self._registry.enabled:
+            return
+        v = np.asarray(values, dtype=np.float64).reshape(-1)
+        if not v.size:
+            return
+        if self._edges_arr is None:
+            self._edges_arr = np.asarray(self.edges, dtype=np.float64)
+        bins = np.bincount(np.searchsorted(self._edges_arr, v, side="left"))
+        hit = [(int(i), int(bins[i])) for i in np.flatnonzero(bins)]
+        lo, hi = float(v.min()), float(v.max())
+        with self._lock:
+            for i, c in hit:
+                self._counts[i] += c
+            self._sum = float(np.add.accumulate(np.concatenate(([self._sum], v)))[-1])
+            self._count += int(v.size)
+            if lo < self._min:
+                self._min = lo
+            if hi > self._max:
+                self._max = hi
 
     @property
     def count(self) -> int:

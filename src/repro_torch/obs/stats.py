@@ -26,12 +26,14 @@ import torch
 from repro_torch.obs import registry as regm
 
 
-def _host_stats(stats) -> dict:
-    """Every field of a stats batch as a host ``(B,)`` int64 array, from one
-    device-to-host copy."""
-    host = torch.stack([torch.as_tensor(getattr(stats, f)) for f in stats._fields]).cpu()
+def _host_stats(stats, **extra) -> dict:
+    """Every field of a stats batch, and each ``extra`` ``(B,)`` tensor, as
+    a host ``(B,)`` int64 array, from one device-to-host copy."""
+    cols = {f: getattr(stats, f) for f in stats._fields}
+    cols.update(extra)
+    host = torch.stack([torch.as_tensor(v) for v in cols.values()]).cpu()
     arr = host.numpy().astype(np.int64)
-    return dict(zip(stats._fields, arr))
+    return dict(zip(cols, arr))
 
 
 def _totals(fields: dict) -> dict:
@@ -63,7 +65,7 @@ def tier_mix(*, queries: int, ios: int, cache_hits: int, tunnels: int) -> dict:
 
 
 def record_search_stats(reg: regm.MetricsRegistry, stats, *,
-                        mode: str, tier: str) -> dict:
+                        mode: str, tier: str, scored=None) -> dict:
     """Fold one stats batch into the registry families.
 
     Counters (labeled ``mode``/``tier``) carry the reconciliation
@@ -71,9 +73,12 @@ def record_search_stats(reg: regm.MetricsRegistry, stats, *,
     store's ``disk.records_read`` exactly, and
     ``search.ios + search.cache_hits`` vs ``search.tunnels`` is the
     fetched-vs-tunneled split.  Histograms carry the per-query
-    distributions.  Returns ``stats_totals``.
+    distributions, each batch in one batch observe.  ``scored`` (the
+    loop's ``(B,)`` ``n_scored``, or None) comes over in the same copy and
+    counts ``search.scored``.  Returns ``stats_totals``.
     """
-    fields = _host_stats(stats)
+    fields = _host_stats(stats, **({} if scored is None else {"n_scored": scored}))
+    n_scored = fields.pop("n_scored", None)
     t = _totals(fields)
     labels = {"mode": mode, "tier": tier}
     reg.counter("search.queries", **labels).inc(t["queries"])
@@ -87,10 +92,8 @@ def record_search_stats(reg: regm.MetricsRegistry, stats, *,
         reg.counter("search.degraded_queries", **labels).inc(
             int((fields["n_degraded"] > 0).sum())
         )
-    h_ios = reg.histogram("search.ios_per_query", mode=mode)
-    h_hops = reg.histogram("search.hops_per_query", mode=mode)
-    for v in fields["n_ios"].tolist():
-        h_ios.observe(v)
-    for v in fields["n_hops"].tolist():
-        h_hops.observe(v)
+    if n_scored is not None:
+        reg.counter("search.scored", **labels).inc(int(n_scored.sum()))
+    reg.histogram("search.ios_per_query", mode=mode).observe_many(fields["n_ios"])
+    reg.histogram("search.hops_per_query", mode=mode).observe_many(fields["n_hops"])
     return t

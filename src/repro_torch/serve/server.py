@@ -32,15 +32,26 @@ latency you can put an SLO on:
   * **per-request tracing** — every request carries a
     :class:`RequestTrace` with queue-wait / batch-form / search / drain
     spans (``time.perf_counter`` seconds — monotonic, never corrupted
-    by wall-clock steps).  Each resolved request's spans are also
-    recorded into the front end's own ``obs`` tracer/registry
-    (``trace.span_seconds{span=serve.*}`` histograms), and admission
-    outcomes / per-tenant I/O attribution are registry counter families
-    — ``io_report`` is a thin view over the registry, layered on the
-    underlying ``RAGServer`` report.  Pass ``registry=`` to aggregate
-    several front ends into one sink; by default each server gets a
-    private, always-enabled registry so its accounting works regardless
-    of the process-wide ``GATEANN_OBS`` toggle.
+    by wall-clock steps) and its batch's number.  A batch's request
+    spans are also published into the front end's own ``obs``
+    tracer/registry (``trace.span_seconds{span=serve.*}`` histograms),
+    once a batch: ``batch_form`` and ``search`` as one value times the
+    batch's count, ``queue_wait`` and ``drain`` as one array each, one
+    ring entry a span; a request resolved alone (shed, or failed at
+    close) publishes its own.  Admission outcomes / per-tenant I/O
+    attribution are registry counter families — ``io_report`` is a thin
+    view over the registry, layered on the underlying ``RAGServer``
+    report.  Pass ``registry=`` to aggregate several front ends into one
+    sink; by default each server gets a private, always-enabled registry
+    so its accounting works regardless of the process-wide
+    ``GATEANN_OBS`` toggle.
+  * **the dispatcher's timeline** — on the process tracer (``obs.trace``,
+    off unless enabled): ``serve.resolve`` from ``rag.retrieve``'s return
+    to the batch's last handle resolved, ``serve.batch_gap`` from there
+    to the next ``rag.retrieve`` call (the wait for arrivals, the batch
+    window, shedding and the EDF sort).  With the ``engine.search`` span
+    inside ``rag.retrieve`` they tile the dispatcher's time; all three
+    carry the batch's number (``batch``) in the ring.
 
 Failure containment: if the engine raises mid-batch, the dispatcher
 abandons any pipelined disk rounds still in flight
@@ -141,6 +152,7 @@ class RequestTrace:
     """
 
     tenant: str
+    batch: int = -1  # the batch's number (its spans' ``batch`` label)
     batch_size: int = 0
     queue_wait: float = 0.0
     batch_form: float = 0.0
@@ -408,33 +420,54 @@ class ServeFrontend:
             return None if closed else []
         return batch
 
-    def _resolve(self, p: _Pending, ids, err, t_searched: float) -> None:
+    def _resolve(self, p: _Pending, ids, err, t_searched: float,
+                 publish: bool = True) -> float:
+        """Hand ``p`` its answer; its drain span.  ``publish``: its four
+        spans go to the front end's tracer now (a batch's go once, after
+        its last handle)."""
         p.handle._ids = ids
         p.handle._error = err
-        p.handle.trace.drain = time.perf_counter() - t_searched
+        drain = p.handle.trace.drain = time.perf_counter() - t_searched
         p.handle._done.set()
         name = p.tenant.name
         outcome = "completed" if err is None else "failed"
         self._counters[outcome][name].inc()
-        # each resolved request publishes its four spans; percentiles and
-        # means come out of trace.span_seconds{span=serve.*} histograms
-        for k in _SPANS:
-            self.tracer.record(f"serve.{k}", getattr(p.handle.trace, k),
-                               tenant=name)
+        # percentiles and means come out of the
+        # trace.span_seconds{span=serve.*} histograms
+        if publish:
+            for k in _SPANS:
+                self.tracer.record(f"serve.{k}", getattr(p.handle.trace, k),
+                                   tenant=name)
         with self._lock:
             self._inflight[name] -= 1
             self._slot_freed.notify_all()
+        return drain
+
+    def _publish(self, batch: list[_Pending], seq: int, drains: list) -> None:
+        """A batch's four request spans, as ``_resolve`` would publish them
+        one request at a time: one batch observe a span, one ring entry."""
+        tr, n, t = self.tracer, len(batch), batch[0].handle.trace
+        tr.record_batch("serve.queue_wait", [p.handle.trace.queue_wait for p in batch],
+                        batch=seq)
+        tr.record_batch("serve.batch_form", t.batch_form, count=n, batch=seq)
+        tr.record_batch("serve.search", t.search, count=n, batch=seq)
+        tr.record_batch("serve.drain", drains, batch=seq)
 
     def _dispatch_loop(self) -> None:
+        tracer = obs.trace.default_tracer()
+        seq = 0
+        t_resolved = None  # the last batch's last handle resolved
         while True:
             batch = self._take_batch()
             if batch is None:
                 return
             if not batch:  # spurious wakeup, nothing to serve
                 continue
+            seq += 1
             t_formed = time.perf_counter()
             for p in batch:
                 p.handle.trace.queue_wait = t_formed - p.t_submit
+                p.handle.trace.batch = seq
                 p.handle.trace.batch_size = len(batch)
             requests = [p.request for p in batch]
             t_dispatch = time.perf_counter()
@@ -455,8 +488,12 @@ class ServeFrontend:
                         round_deadline_s=max(remaining, _MIN_ROUND_DEADLINE_S)
                     )
                     budget_set = True
+            traced = tracer.enabled
+            if traced and t_resolved is not None:
+                tracer.record("serve.batch_gap", time.perf_counter() - t_resolved, batch=seq)
             try:
-                ids, stats = self.rag.retrieve(requests)
+                with tracer.tagged(batch=seq):
+                    ids, stats = self.rag.retrieve(requests)
                 err = None
             except BaseException as e:  # noqa: BLE001 — failures are per-batch
                 # a mid-search failure may strand a pipelined disk round
@@ -476,6 +513,7 @@ class ServeFrontend:
             n_ios = stats.n_ios.tolist() if err is None else None
             n_hits = stats.n_cache_hits.tolist() if err is None else None
             n_deg = stats.n_degraded.tolist() if err is None else None
+            drains = []
             for i, p in enumerate(batch):
                 p.handle.trace.search = t_searched - t_dispatch
                 name = p.tenant.name
@@ -488,9 +526,13 @@ class ServeFrontend:
                     self._counters["cache_hits"][name].inc(n_hits[i])
                     if n_deg[i]:
                         self._counters["degraded"][name].inc(n_deg[i])
-                    self._resolve(p, ids[i], None, t_searched)
+                    drains.append(self._resolve(p, ids[i], None, t_searched, publish=False))
                 else:
-                    self._resolve(p, None, err, t_searched)
+                    drains.append(self._resolve(p, None, err, t_searched, publish=False))
+            t_resolved = time.perf_counter()
+            if traced:
+                tracer.record("serve.resolve", t_resolved - t_searched, batch=seq)
+            self._publish(batch, seq, drains)
             self._c_batches.inc()
 
     # -- reporting / lifecycle ---------------------------------------------

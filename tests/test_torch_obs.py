@@ -17,7 +17,8 @@ reference's output exactly:
     — disk tier, depths 1 and 2, uncached and adaptive — gives equal
     family totals in both packages (``search.*`` less the reference's
     ``search.traces``, which the port drops: it has no jit trace to
-    count; ``disk.*``; ``cache.*``), and equal span counts;
+    count; ``disk.*``; ``cache.*``), and equal span counts; beside them
+    the port has exactly its own families (``search.PORT_FAMILIES``);
   * with telemetry off the stats hook is unreachable.
 """
 import json
@@ -337,8 +338,10 @@ def _families(reg) -> dict:
 @pytest.mark.parametrize("depth", [1, 2])
 def test_family_totals_match_reference(index_path, tiny_corpus, depth, cached):
     """Both packages load one index file on the disk tier and run the same
-    gate batches: every registry family (search.*, disk.*, cache.*) is
-    equal, children, totals and histograms."""
+    gate batches: every registry family of the reference (search.*,
+    disk.*, cache.*) is equal in the port, children, totals and
+    histograms, and the port's other families are exactly
+    ``search.PORT_FAMILIES``."""
     _, _, queries = tiny_corpus
     knobs = dict(store_tier="disk")
     if cached:
@@ -355,7 +358,9 @@ def test_family_totals_match_reference(index_path, tiny_corpus, depth, cached):
             np.asarray(out.stats.n_ios)
     try:
         got, want = _families(reg), _families(jreg)
-        assert sorted(got) == sorted(want)
+        # every reference family, equal; beside them exactly the port's own
+        assert set(want) <= set(got)
+        assert set(got) - set(want) == set(tsearch.PORT_FAMILIES)
         for name in want:
             assert got[name] == want[name], name
         assert got["disk.records_read"]["total"] == got["search.ios"]["total"] > 0
