@@ -6,10 +6,13 @@ predicate).  ``setup`` makes the deployment and hands it to the program
 (``repro_torch``) through ``GateANNEngine.from_arrays`` behind its serving
 front end: the corpus, query pool, index and ground truth come from the
 configuration's ``dataset_seed`` (one fixed set, as a published set is one
-file), and the run's seed orders the request stream.  ``drive`` keeps the
-cell's clients outstanding from one thread, warms up, and measures a window;
-``run_cell`` then holds the window's answers to the plain reference
-(``check.py``) and reads the per-layer metrics (``metrics/<name>.py``).
+file), and the run's seed orders the request stream.  A cell's traffic is a
+closed loop (``drive``: the cell's clients kept outstanding from one
+thread) or, with ``"traffic_kind": "bulk"``, back-to-back calls of the
+engine over a query matrix (``drive_bulk``: no front end).  Either warms up
+and measures a window; ``run_cell`` then holds the window's answers to the
+plain reference (``check.py``) and reads the per-layer metrics
+(``metrics/<name>.py``).
 
 Only ``repro_torch`` is imported of the program, and only here.
 """
@@ -64,6 +67,11 @@ class Cell:
         return bool(self.workload["filtered"])
 
     @property
+    def bulk(self) -> bool:
+        """Back-to-back engine calls over query matrices, not a served loop."""
+        return self.workload.get("traffic_kind", "closed") == "bulk"
+
+    @property
     def search(self) -> dict:
         return self.workload["search"]
 
@@ -85,16 +93,21 @@ class Deployment:
     queries_np: np.ndarray
     tenant_of: list  # tenant name of each pool query
     order: np.ndarray  # the request stream: pool indices, ordered by the run's seed
+    stream: np.random.Generator  # the run's seed's generator (a bulk call's permutation)
     timings: dict = dataclasses.field(default_factory=dict)  # set-up seconds by part
     engine_bytes: int = 0  # device bytes the program's engine holds once built
+
+    def close(self) -> None:
+        if self.frontend is not None:
+            self.frontend.close()
 
 
 def setup(cell: Cell, seed: int, device, data: dict | None = None) -> Deployment:
     """The configuration's corpus, index and ground truth, served by the
-    program on its configured tier behind its front end, and the request
-    stream: the pool in four permutations drawn from ``seed``.  ``data``
-    replaces the drawn corpus and query pool (``sweep_l.py``'s generator
-    comparison)."""
+    program on its configured tier behind its front end (none for a bulk
+    cell), and the request stream: the pool in four permutations drawn from
+    ``seed``.  ``data`` replaces the drawn corpus and query pool
+    (``sweep_l.py``'s generator comparison)."""
     from repro_torch.core.engine import EngineConfig, GateANNEngine
 
     dev = torch.device(device)
@@ -136,8 +149,10 @@ def setup(cell: Cell, seed: int, device, data: dict | None = None) -> Deployment
     order = np.concatenate([rng.permutation(spec.n_queries) for _ in range(4)])
     dep = Deployment(cell=cell, device=dev, data=d, index=ix, gt=gt, engine=engine,
                      frontend=None, queries_np=d["queries"].cpu().numpy(),
-                     tenant_of=tenant_of, order=order, timings=timings, engine_bytes=held)
-    dep.frontend = serve(dep, cell.search)
+                     tenant_of=tenant_of, order=order, stream=rng, timings=timings,
+                     engine_bytes=held)
+    if not cell.bulk:
+        dep.frontend = serve(dep, cell.search)
     return dep
 
 
@@ -231,6 +246,7 @@ class Window:
     registry_delta: dict | None
     device: object | None  # devtrace.DeviceTrace of the window, with --trace 1
     memory: dict  # device bytes allocated at the window's open, and its peak
+    closed_at: float | None = None  # the close's end: t1, or the device trace's read after it
 
 
 def _registry_totals(reg) -> dict:
@@ -260,7 +276,10 @@ def drive(dep: Deployment, seconds: float, *, trace: bool = False, registry=None
     The window opens as the last warm-up batch is back and closes as the
     first batch to end ``seconds`` or more after it is back, so it holds
     whole batches: its length is ``seconds`` and less than one batch more.
-    The device's peak of allocated bytes is reset as the window opens.
+    With ``trace`` the device trace is read in the close, on this thread,
+    and ``late_s`` runs from the end of that read, so that the window's
+    last batches are not made late by it.  The device's peak of allocated
+    bytes is reset as the window opens.
 
     ``trace``: the deltas of ``registry``'s families over the window are
     kept, and on the card the device is traced over it (``devtrace``)."""
@@ -272,6 +291,7 @@ def drive(dep: Deployment, seconds: float, *, trace: bool = False, registry=None
     sent = 0
     log = _Log(int(dep.cell.search["result_k"]))
     t0 = t1 = None  # the window: from the end of one batch to the end of another
+    t_late = None  # late answers are timed from here: the close, or the trace's read
     prof = reg0 = delta = dev = None
     memory = {}
     warmed = resolved_in = 0
@@ -304,7 +324,7 @@ def drive(dep: Deployment, seconds: float, *, trace: bool = False, registry=None
         req = outstanding.popleft()
         ids = None
         if req.error is None:
-            wait = None if t1 is None else max(t1 + late_s - time.perf_counter(), 0.0)
+            wait = None if t1 is None else max(t_late + late_s - time.perf_counter(), 0.0)
             try:
                 ids = req.handle.result(timeout=wait)
             except Exception as e:  # noqa: BLE001 -- a failed request counts as failed
@@ -340,24 +360,104 @@ def drive(dep: Deployment, seconds: float, *, trace: bool = False, registry=None
             if now - t0 >= seconds and batch_end:  # the window closes
                 t1 = now
                 close_trace()
+                t_late = time.perf_counter()
             else:
                 submit(True)
     close_trace()
     if cuda:
         memory["peak_bytes"] = torch.cuda.max_memory_allocated(dep.device)
     return Window(t0=t0, t1=t1, requests=log.requests(t1), resolved_in_window=resolved_in,
-                  registry_delta=delta, device=dev, memory=memory)
+                  registry_delta=delta, device=dev, memory=memory, closed_at=t_late)
+
+
+def drive_bulk(dep: Deployment, seconds: float, *, trace: bool = False,
+               registry=None) -> Window:
+    """The bulk loop, from this one thread: the program's
+    ``GateANNEngine.search`` called back to back, no front end, each call on
+    the whole query pool in the order of a fresh permutation drawn from the
+    run's seed, each query with its own predicate (the pool's labels, on the
+    device since set-up), and each call's ids and ``SearchStats`` copied to
+    the host.  The first ``warmup_calls`` calls
+    warm every shape; the window opens as the last of them ends and closes
+    as the first call to end ``seconds`` or more after it ends, so it holds
+    whole calls.  A call that raises fails all of its queries.  The
+    device's peak of allocated bytes is reset as the window opens.
+
+    ``trace``: the deltas of ``registry``'s families over the window are
+    kept, and on the card the device is traced over it (``devtrace``)."""
+    from repro_torch.core.search import SearchConfig
+
+    wl = dep.cell.workload
+    cfg = SearchConfig(**dep.cell.search)
+    queries = dep.data["queries"]
+    k, size = cfg.result_k, queries.shape[0]
+    labels = dep.data["query_labels"] if dep.cell.filtered else None
+    cuda = dep.device.type == "cuda"
+
+    def call():
+        pool = dep.stream.permutation(size)
+        rows = torch.as_tensor(pool, device=dep.device)
+        try:
+            out = dep.engine.search(queries[rows], filter_kind=None if labels is None else "label",
+                                    filter_params=None if labels is None else labels[rows],
+                                    search_config=cfg)
+            host = torch.cat([out.ids.long(), torch.stack(out.stats, 1).long()], 1).cpu().numpy()
+            return pool, True, host[:, :k], host[:, k]  # ids, SearchStats.n_ios
+        except Exception:  # noqa: BLE001 -- a failed call fails its queries
+            return pool, False, np.full((size, k), -1, np.int64), np.zeros(size, np.int64)
+
+    for _ in range(int(wl["warmup_calls"])):
+        call()
+    memory = {}
+    prof = reg0 = delta = dev = None
+    if cuda:
+        memory["open_bytes"] = torch.cuda.memory_allocated(dep.device)
+        torch.cuda.reset_peak_memory_stats(dep.device)
+    if trace:
+        reg0 = _registry_totals(registry)
+        if cuda:
+            prof = devtrace.start()
+    t0 = time.perf_counter()
+    calls = []
+    while True:
+        calls.append(call())
+        t1 = time.perf_counter()
+        if t1 - t0 >= seconds:
+            break
+    if trace:
+        if prof is not None:
+            torch.cuda.synchronize(dep.device)
+        delta = {n: v - reg0.get(n, 0) for n, v in _registry_totals(registry).items()}
+        if prof is not None:
+            dev = devtrace.stop(prof, time.perf_counter() - t0)
+    closed_at = time.perf_counter()
+    if cuda:
+        memory["peak_bytes"] = torch.cuda.max_memory_allocated(dep.device)
+    pool = np.concatenate([c[0] for c in calls]).astype(np.int64)
+    ok = np.concatenate([np.full(size, c[1]) for c in calls])
+    reqs = Requests(pool=pool, ok=ok, by_close=ok.copy(),
+                    ids=np.concatenate([c[2] for c in calls]),
+                    n_ios=np.concatenate([c[3] for c in calls]),
+                    batch_size=np.full(len(pool), size, np.int64),
+                    queue_wait_s=np.zeros(len(pool)))
+    return Window(t0=t0, t1=t1, requests=reqs, resolved_in_window=int(ok.sum()),
+                  registry_delta=delta, device=dev, memory=memory, closed_at=closed_at)
 
 
 def load_reader(name: str):
     """The per-layer metric ``name``: ``metrics/<name>.py`` with ``UNIT``,
-    ``LAYER``, ``MOVES`` and ``read(ctx) -> float | None``."""
+    ``LAYER`` and ``read(ctx) -> float | None``.  A dotted name with no file
+    of its own (``search_ms_per_round.bulk``) is read by the reader of the
+    part before the first dot: the same quantity, listed for cells that
+    report another end-to-end metric (``BENCHMARK.json``'s ``moves``)."""
     import importlib.util
 
     path = ROOT / "metrics" / f"{name}.py"
     if not path.is_file():
+        path = ROOT / "metrics" / f"{name.split('.')[0]}.py"
+    if not path.is_file():
         raise FileNotFoundError(f"no reader for per-layer metric {name!r} ({path})")
-    spec = importlib.util.spec_from_file_location(f"gatebench_metric_{name}", path)
+    spec = importlib.util.spec_from_file_location(f"gatebench_metric_{path.stem}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -390,11 +490,12 @@ def recall(ids: np.ndarray, gt: np.ndarray) -> np.ndarray:
 
 
 def end_to_end(dep: Deployment, win: Window) -> dict:
-    """qps over the window, and recall_at_10 over every request of it (a
-    failed request recalls nothing)."""
+    """Queries answered in the window over its seconds (``bulk_qps`` in a
+    bulk cell, ``qps`` in a served one), and recall_at_10 over every
+    request of it (a failed request recalls nothing)."""
     reqs = win.requests
     gt = dep.gt.cpu().numpy()
-    return {"qps": win.resolved_in_window / (win.t1 - win.t0),
+    return {"bulk_qps" if dep.cell.bulk else "qps": win.resolved_in_window / (win.t1 - win.t0),
             "recall_at_10": float(recall(reqs.ids, gt[reqs.pool]).mean()) if len(reqs) else 0.0}
 
 
@@ -422,18 +523,22 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
     dep = setup(cell, seed, dev)
     log(f"[gatebench] set-up done in {time.perf_counter() - t_start:.3f} s: "
         + ", ".join(f"{k} {v:.3f}" for k, v in dep.timings.items()))
-    win = drive(dep, seconds, trace=trace, registry=reg, late_s=late_s)
+    if cell.bulk:
+        win = drive_bulk(dep, seconds, trace=trace, registry=reg)
+    else:
+        win = drive(dep, seconds, trace=trace, registry=reg, late_s=late_s)
     setup_s = win.t0 - t_start
     reqs = win.requests
+    late_from = win.t1 if win.closed_at is None else win.closed_at
     log(f"[gatebench] window {win.t1 - win.t0:.3f} s from {setup_s:.3f} s, "
-        f"{len(reqs)} requests, {time.perf_counter() - win.t1:.3f} s to drain"
-        + (", trace read in the close" if trace else ""))
+        f"{len(reqs)} requests, {late_from - win.t1:.3f} s to read the trace in the close, "
+        f"{time.perf_counter() - late_from:.3f} s to drain after it")
     if win.memory:
         log(f"[gatebench] device bytes: {dep.engine_bytes} held by the engine, "
             f"{win.memory['open_bytes']} allocated as the window opened, "
             f"{win.memory['peak_bytes']} at the window's peak")
     e2e = {**end_to_end(dep, win), "setup_s": setup_s}
-    dep.frontend.close()
+    dep.close()
     numbers = check.structural(dep, reqs)
     picked = check.sample(reqs, int(cell.workload["check"]["sample"]), seed)
     dep.engine = dep.frontend = None  # the program's state goes before the reference runs

@@ -6,7 +6,6 @@ card has no work from the front end in it.  Read where the window was traced
 on the card; elsewhere, and where the program has no such span, nothing."""
 UNIT = "ms"
 LAYER = "serve front end"
-MOVES = "recall_at_10"
 SPAN = "trace.span_seconds[serve.batch_gap]"
 
 

@@ -5,7 +5,6 @@ answered after the window's close are left out: the close's own work (the
 trace's read) holds them up."""
 UNIT = "requests"
 LAYER = "serve front end"
-MOVES = "recall_at_10"
 
 
 def read(ctx):

@@ -2,7 +2,6 @@
 copy or fill (the union of their intervals in the profiler's CUDA trace)."""
 UNIT = "%"
 LAYER = "device"
-MOVES = "recall_at_10"
 
 
 def read(ctx):

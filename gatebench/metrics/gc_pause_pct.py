@@ -7,7 +7,6 @@ card; elsewhere, and where the program does not time collections,
 nothing."""
 UNIT = "%"
 LAYER = "host runtime"
-MOVES = "recall_at_10"
 PREFIX = "gc.pause_seconds[generation="
 
 

@@ -13,14 +13,13 @@ fused or not:
 * per node fetched, its filter word, its R neighbour ids and its D x 4 B
   vector (the exact distance).
 
-Queries, fetches and tunnels are the program's ``search.*`` counts over
-the window.  The number of nodes scored depends on which candidates were
-seen before; the program does not count it, so it is the reference's mean
-per query over the checked sample, times the window's queries.
+Queries, nodes scored, fetches and tunnels are the program's ``search.*``
+counts over the window (``search.scored``: new candidates given a PQ
+distance, counted with the registry on).  Where the program does not count
+the nodes scored, nothing.
 """
 UNIT = "%"
 LAYER = "kernels"
-MOVES = "recall_at_10"
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -31,15 +30,12 @@ def window_bytes(*, queries, ios, tunnels, scored, dim, degree, r_max, chunks, c
 
 def read(ctx):
     reg, dev = ctx.registry, ctx.device
-    sample = ctx.ref["scored"]
     if not reg or dev is None or dev.kernel_s <= 0 or not reg.get("search.queries") \
-            or not len(sample):
+            or "search.scored" not in reg:
         return None
     ix, d = ctx.cell.index_spec, ctx.cell.data_spec
-    queries = reg["search.queries"]
-    scored = queries * float(sample.sum()) / len(sample)
-    need = window_bytes(queries=queries, ios=reg.get("search.ios", 0.0),
-                        tunnels=reg.get("search.tunnels", 0.0), scored=scored, dim=d.dim,
-                        degree=ix.degree, r_max=ix.r_max, chunks=ix.pq_chunks,
+    need = window_bytes(queries=reg["search.queries"], ios=reg.get("search.ios", 0.0),
+                        tunnels=reg.get("search.tunnels", 0.0), scored=reg["search.scored"],
+                        dim=d.dim, degree=ix.degree, r_max=ix.r_max, chunks=ix.pq_chunks,
                         centroids=ix.pq_centroids)
     return 100.0 * (need / HBM_BYTES_PER_S) / dev.kernel_s

@@ -4,7 +4,6 @@ Requests answered after the window's close are left out: the close's own
 work (the trace's read) holds them up."""
 UNIT = "ms"
 LAYER = "serve front end"
-MOVES = "recall_at_10"
 
 
 def read(ctx):

@@ -2,7 +2,6 @@
 ``search.ios`` / ``search.queries`` of the program's registry."""
 UNIT = "records"
 LAYER = "record fetch"
-MOVES = "recall_at_10"
 
 
 def read(ctx):

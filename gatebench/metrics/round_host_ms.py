@@ -7,7 +7,6 @@ device trace beside it); elsewhere, and where the program keeps no such
 sums, nothing."""
 UNIT = "ms"
 LAYER = "search loop"
-MOVES = "recall_at_10"
 PHASES = ("stage_a", "fetch", "rerank", "expand")
 
 

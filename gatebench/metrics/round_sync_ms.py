@@ -7,7 +7,6 @@ window was traced on the card; elsewhere, and where the program keeps no
 such sum, nothing."""
 UNIT = "ms"
 LAYER = "search loop"
-MOVES = "recall_at_10"
 KEY = "search.round_seconds[phase=sync].sum"
 
 

@@ -5,7 +5,6 @@ traced on the card; elsewhere, and where the program does not count them,
 nothing."""
 UNIT = "nodes"
 LAYER = "search loop"
-MOVES = "recall_at_10"
 
 
 def read(ctx):

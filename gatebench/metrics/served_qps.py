@@ -5,7 +5,6 @@ host-bound), too widely for any bound the check can hold, so it stands
 per layer and has no end-to-end twin."""
 UNIT = "queries/s"
 LAYER = "serve front end"
-MOVES = "recall_at_10"
 
 
 def read(ctx):

@@ -3,7 +3,6 @@ through the neighbour store, never fetched), over the traced window:
 ``search.tunnels`` / ``search.queries`` of the program's registry."""
 UNIT = "nodes"
 LAYER = "search loop"
-MOVES = "recall_at_10"
 
 
 def read(ctx):

@@ -3,8 +3,9 @@
     python3 gatebench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Sets up the cell's deployment (``harness.setup``; the seed orders the
-request stream and draws the checked sample), warms up,
-measures a window of ``--seconds`` under the cell's closed loop, checks a
+request stream and draws the checked sample), warms up, measures a window
+of ``--seconds`` under the cell's traffic (a closed loop of clients, or
+back-to-back engine calls over the query pool in a bulk cell), checks a
 sample of the answers against the plain reference, and prints one JSON
 object as the last line of standard output: with ``--trace 0`` the cell's
 end-to-end metrics, with ``--trace 1`` its per-layer metrics (the device

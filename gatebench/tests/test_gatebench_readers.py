@@ -2,7 +2,9 @@
 and garbage-collection pauses: nothing on an untraced window, nor on one with
 no device trace beside it, nor where the program keeps no such family; the
 expected value on a window whose registry holds the keys
-``harness._registry_totals`` makes of those families."""
+``harness._registry_totals`` makes of those families.  The round's time and
+the kernels' roofline share divide by the program's own counts of rounds
+and of nodes scored."""
 import sys
 from pathlib import Path
 
@@ -17,7 +19,8 @@ READERS = ("round_host_ms", "round_sync_ms", "scored_per_query", "resolve_ms_per
            "batch_gap_ms", "gc_pause_pct")
 WINDOW_S = 30.0
 PHASE_S = {"stage_a": 0.5, "fetch": 0.125, "rerank": 0.25, "expand": 0.75, "sync": 0.375}
-ROUNDS, QUERIES, SCORED = 500, 4096, 1_228_800
+ROUNDS, QUERIES, SCORED, IOS, TUNNELS = 500, 4096, 1_228_800, 135_000, 1_210_000
+SEARCH_S, KERNEL_S = 1.5, 1.0
 RESOLVE_S, GAP_S = (0.002, 0.004, 0.006), (0.05, 0.07)
 GC_S = {"0": (0.001, 0.002), "1": (0.01,), "2": (0.2, 0.25)}
 
@@ -42,6 +45,10 @@ def program_registry():
     reg.counter("search.rounds", mode="gate").inc(ROUNDS)
     reg.counter("search.queries", mode="gate", tier="memory").inc(QUERIES)
     reg.counter("search.scored", mode="gate", tier="memory").inc(SCORED)
+    reg.counter("search.ios", mode="gate", tier="memory").inc(IOS)
+    reg.counter("search.tunnels", mode="gate", tier="memory").inc(TUNNELS)
+    reg.counter("search.hops", mode="gate", tier="memory").inc(QUERIES * 90)
+    reg.histogram("trace.span_seconds", span="engine.search").observe(SEARCH_S)
     for name, values in (("serve.resolve", RESOLVE_S), ("serve.batch_gap", GAP_S)):
         reg.histogram("trace.span_seconds", span=name).observe_many(values)
     for gen, values in GC_S.items():
@@ -50,7 +57,7 @@ def program_registry():
 
 
 def context(registry, device=True):
-    dev = devtrace.DeviceTrace(window_s=WINDOW_S, busy_s=3.0, kernel_s=1.0, top_ops=[],
+    dev = devtrace.DeviceTrace(window_s=WINDOW_S, busy_s=3.0, kernel_s=KERNEL_S, top_ops=[],
                                top_gaps=[]) if device else None
     return harness.Context(cell=harness.Cell.load(CELLS[0]), window_s=WINDOW_S,
                            resolved_in_window=0, requests=None, registry=registry, device=dev,
@@ -86,3 +93,28 @@ def test_reader_reads_nothing_without_the_family(name):
     reg.counter("search.hops", mode="gate", tier="memory").inc(QUERIES * 90)
     reg.histogram("trace.span_seconds", span="engine.search").observe(0.3)
     assert harness.load_reader(name).read(context(harness._registry_totals(reg))) is None
+
+
+def test_round_time_divides_by_the_program_rounds():
+    """``search.rounds``, not the per-query hops over the calls."""
+    reader = harness.load_reader("search_ms_per_round")
+    totals = harness._registry_totals(program_registry())
+    assert reader.read(context(totals)) == pytest.approx(1e3 * SEARCH_S / ROUNDS, rel=1e-12)
+    del totals["search.rounds"]
+    assert reader.read(context(totals)) is None
+
+
+def test_roofline_counts_the_program_scored_nodes():
+    """The bytes of the window's nodes scored come from ``search.scored``,
+    not from the reference's sample."""
+    reader = harness.load_reader("kernel_roofline_pct")
+    cell = harness.Cell.load(CELLS[0])
+    ix, d = cell.index_spec, cell.data_spec
+    need = reader.window_bytes(queries=QUERIES, ios=IOS, tunnels=TUNNELS, scored=SCORED,
+                               dim=d.dim, degree=ix.degree, r_max=ix.r_max,
+                               chunks=ix.pq_chunks, centroids=ix.pq_centroids)
+    totals = harness._registry_totals(program_registry())
+    got = reader.read(context(totals))
+    assert got == pytest.approx(100.0 * need / reader.HBM_BYTES_PER_S / KERNEL_S, rel=1e-12)
+    del totals["search.scored"]
+    assert reader.read(context(totals)) is None

@@ -11,6 +11,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from gatebench_tiny import GATED, REPO  # noqa: E402
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
+# The whole run's window.  It opens as a batch ends; the next batch was
+# submitted before it opened, so the window's own requests are answered by
+# the batch after that at the earliest.  A window of half a second held none
+# of them in some runs under six parallel test workers (a batch took longer),
+# and the front end's readers then had nothing to read.
+WINDOW_S = 3.0
 
 
 def run(code: str, **env) -> subprocess.CompletedProcess:
@@ -40,12 +46,14 @@ def test_forbidden_names_are_whole_top_level_names():
 
 def test_a_whole_run_loads_no_jax_and_the_reference_no_program():
     code = (
+        f"WINDOW_S = {WINDOW_S}\n"
         "import sys, json, time; sys.path[:0] = ['gatebench/tests']\n"
         "import gatebench_tiny as t\n"
         "from gatebench import reference, check, data, index, devtrace\n"
         "ref_only = sorted(m for m in sys.modules if m.split('.')[0] == 'repro_torch')\n"
         "cell = t.tiny_cell(t.GATED[0], n=800)\n"
-        "res, rows = t.harness.run_cell(cell, 3, 0.5, True, 'cpu', time.perf_counter(), t.PER_LAYER)\n"
+        "res, rows = t.harness.run_cell(cell, 3, WINDOW_S, True, 'cpu', time.perf_counter(),\n"
+        "                               t.cell_metrics(cell.name, 'per_layer'))\n"
         "print(json.dumps({'ref_only': ref_only, 'correct': res['correct'],\n"
         "                  'metrics': sorted(res['metrics']),\n"
         "                  'top': sorted({m.split('.')[0] for m in sys.modules})}))\n")
