@@ -881,7 +881,7 @@ def build_phase(tmp: str, dev, card: str, cap, n: int) -> dict:
     targets = torch.from_numpy(
         np.random.default_rng(2).integers(0, N_LABELS, N_QUERIES).astype(np.int32)).to(dev)
     gt = ground_truth(x, torch.from_numpy(labels).to(dev), q, targets)
-    search = SearchConfig(mode="gate", **SEARCH)
+    search = SearchConfig(mode="gate", use_fused_kernel=False, **SEARCH)
     runs = {"build_vamana_gate": run_search(eng, q, targets, search)}
     same_run(run_search(loaded, q, targets, search), runs["build_vamana_gate"],
              "loaded index vs built engine")
@@ -1014,9 +1014,9 @@ def same_run(a, b, what: str) -> None:
 
 def search_phase(eng, q, targets, gt, card: str, cap: Capture) -> dict:
     configs = {
-        "gate_unfused": SearchConfig(mode="gate", **SEARCH),
+        "gate_unfused": SearchConfig(mode="gate", use_fused_kernel=False, **SEARCH),
         "gate_fused": SearchConfig(mode="gate", use_fused_kernel=True, **SEARCH),
-        "post": SearchConfig(mode="post", **SEARCH),
+        "post": SearchConfig(mode="post", use_fused_kernel=False, **SEARCH),
     }
     with cap:  # warm-up batch, untimed: loads the kernels, records real rounds
         for name, cfg in configs.items():
@@ -1086,7 +1086,8 @@ def search_phase(eng, q, targets, gt, card: str, cap: Capture) -> dict:
     # off the main path: the same queries at a wider frontier, to show how
     # far recall at L = 64 is from what the graph can reach
     ids, _, st, lat, _ = run_search(eng, q, targets, SearchConfig(mode="gate", search_l=256,
-                                                               beam_width=8, result_k=10))
+                                                               beam_width=8, result_k=10,
+                                                               use_fused_kernel=False))
     summary["gate_L256"] = {"recall@10": recall_at_k(ids, gt, 10),
                             "n_ios": float(st["n_ios"].float().mean()),
                             "n_hops": float(st["n_hops"].float().mean()),
@@ -1345,12 +1346,14 @@ def ssd_phase(path: str, q, targets, mem_runs: dict, card: str, cap: Capture) ->
         f"{store.reader_threads} reader threads; device memory allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     configs = {  # name -> (config, the memory-tier run it must equal)
-        "disk_gate_d1": (SearchConfig(mode="gate", **SEARCH), "gate_unfused"),
-        f"disk_gate_d{DEPTH}": (SearchConfig(mode="gate", pipeline_depth=DEPTH, **SEARCH),
-                                "gate_unfused"),
+        "disk_gate_d1": (SearchConfig(mode="gate", use_fused_kernel=False, **SEARCH),
+                         "gate_unfused"),
+        f"disk_gate_d{DEPTH}": (SearchConfig(mode="gate", use_fused_kernel=False,
+                                             pipeline_depth=DEPTH, **SEARCH), "gate_unfused"),
         f"disk_gate_fused_d{DEPTH}": (SearchConfig(mode="gate", use_fused_kernel=True,
                                                    pipeline_depth=DEPTH, **SEARCH), "gate_fused"),
-        f"disk_post_d{DEPTH}": (SearchConfig(mode="post", pipeline_depth=DEPTH, **SEARCH), "post"),
+        f"disk_post_d{DEPTH}": (SearchConfig(mode="post", use_fused_kernel=False,
+                                             pipeline_depth=DEPTH, **SEARCH), "post"),
     }
     summary, runs = {}, {}
     for name, (cfg, mem_name) in configs.items():
@@ -1507,9 +1510,10 @@ def cache_phase(eng, path: str, q, targets, mem_runs: dict, card: str, cap) -> d
     budgets = {f"{round(f * 100)}pct": int(n * f) * per for f in CACHE_FRACTIONS}
     summary = {"record_bytes": per,
                "budgets": {k: {"records": b // per, "bytes": b} for k, b in budgets.items()}}
-    mem_cfgs = {"gate_unfused": SearchConfig(mode="gate", **SEARCH),
+    mem_cfgs = {"gate_unfused": SearchConfig(mode="gate", use_fused_kernel=False, **SEARCH),
                 "gate_fused": SearchConfig(mode="gate", use_fused_kernel=True, **SEARCH)}
-    disk_cfgs = {f"disk_gate_d{d}": SearchConfig(mode="gate", pipeline_depth=d, **SEARCH)
+    disk_cfgs = {f"disk_gate_d{d}": SearchConfig(mode="gate", use_fused_kernel=False,
+                                                 pipeline_depth=d, **SEARCH)
                  for d in (1, DEPTH)}
     ios = {name: [int(mem_runs[base][2]["n_ios"].sum())] for name, base in
            [*((k, k) for k in mem_cfgs), *((k, "gate_unfused") for k in disk_cfgs)]}
@@ -1761,7 +1765,7 @@ def serve_phase(eng, path: str, q, targets, card: str, cap) -> dict:
     probs = np.arange(1, SERVE_TENANTS + 1, dtype=np.float64) ** -SERVE_ALPHA
     tenants = np.random.default_rng(7).choice(SERVE_TENANTS, size=q_np.shape[0],
                                               p=probs / probs.sum())
-    disk_cfg = SearchConfig(pipeline_depth=SERVE_DEPTH, **SERVE)
+    disk_cfg = SearchConfig(use_fused_kernel=False, pipeline_depth=SERVE_DEPTH, **SERVE)
     budget = int(n * SERVE_CACHE_FRACTION) * record_nbytes(DIM, DEGREE)
     summary = {"tenant_requests": np.bincount(tenants, minlength=SERVE_TENANTS).tolist(),
                "cache_records": budget // record_nbytes(DIM, DEGREE)}
@@ -2073,7 +2077,7 @@ def lm_generate(phase: str, path: str, eng, q, targets, cfg, card: str, cap: Cap
     model = zoo.init_params(cfg, torch.Generator("cuda").manual_seed(0), device=dev)
     n = int(eng.codes.shape[0])
     passages = np.random.default_rng(5).integers(0, cfg.vocab_size, (n, LM_PASSAGE)).astype(np.int32)
-    search = SearchConfig(mode="gate", **SEARCH)
+    search = SearchConfig(mode="gate", use_fused_kernel=False, **SEARCH)
     srv = RAGServer(engine=eng, cfg=cfg, params=model, passage_tokens=passages,
                     search_config=search)
     rng = np.random.default_rng(6)
@@ -3221,7 +3225,7 @@ def serve_rag_server(eng, cfg, model, q, targets, layout=None):
     n = int(eng.codes.shape[0])
     passages = np.random.default_rng(34).integers(0, cfg.vocab_size, (n, rag["passage"])).astype(np.int32)
     search = SearchConfig(mode="gate", search_l=SEARCH["search_l"], beam_width=SEARCH["beam_width"],
-                          result_k=rag["k"])
+                          result_k=rag["k"], use_fused_kernel=False)
     kw = {} if layout is None else {"layout": layout}
     srv = RAGServer(eng, cfg, model, passages, search, **kw)
     rng = np.random.default_rng(35)
@@ -4015,10 +4019,11 @@ def host_phase(path: str, q, targets, mem_runs: dict, card: str, cap: Capture) -
         f"(vectors {tuple(store.vectors.shape)} f32, neighbours {tuple(store.neighbors.shape)} "
         f"i32), loaded in {load_s:.1f} s")
     configs = {  # name -> (config, the memory-tier run it must equal)
-        "host_gate_unfused": (SearchConfig(mode="gate", **SEARCH), "gate_unfused"),
+        "host_gate_unfused": (SearchConfig(mode="gate", use_fused_kernel=False, **SEARCH),
+                              "gate_unfused"),
         "host_gate_fused": (SearchConfig(mode="gate", use_fused_kernel=True, **SEARCH),
                             "gate_fused"),
-        "host_post": (SearchConfig(mode="post", **SEARCH), "post"),
+        "host_post": (SearchConfig(mode="post", use_fused_kernel=False, **SEARCH), "post"),
     }
     summary = {"load_s": load_s, "pinned_bytes": pinned}
     for name, (cfg, mem_name) in configs.items():
@@ -4418,6 +4423,34 @@ def total(cap: Capture, kernel: str) -> int:
     return sum(by_path(cap, kernel).values())
 
 
+def bulk_fused_args(args, kw, b: int = 10_000, l: int = 256, m: int = 768, live: int = 27,
+                    seed: int = 12):
+    """A fused round at the bulk cell's shape, on a captured call's code
+    table and LUTs (theirs in turn, B of them): an L-slot frontier of
+    distinct ids sorted by distance, 40% of it expanded, and M candidate
+    slots of which ``live`` a row hold fresh ids, the rest -1 as the
+    visited mask leaves them (2,868 scored over 106 rounds a query in the
+    bulk cell: about 27); 10% of ids pass the filter."""
+    codes, lut0 = args[5], args[7]
+    dev, n = codes.device, codes.shape[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.arange(b, device=dev)
+    # distinct ids a row: a random start and a stride with (L + M) * stride < N
+    start = torch.randint(0, n, (b, 1), generator=g, device=dev)
+    ids = ((start + torch.arange(l + m, device=dev) * (n // (l + m))) % n).int()
+    fids = ids[:, :l].contiguous()
+    fds = torch.rand((b, l), generator=g, device=dev).sort(dim=1).values * 1e5
+    fexp = torch.rand((b, l), generator=g, device=dev) < 0.4
+    fpas = torch.rand((b, l), generator=g, device=dev) < 0.1
+    slots = torch.rand((b, m), generator=g, device=dev).argsort(dim=1)[:, :live]
+    new_ids = torch.full((b, m), -1, dtype=torch.int32, device=dev)
+    new_ids.scatter_(1, slots, ids[:, l:l + live])
+    new_pas = (torch.rand((b, m), generator=g, device=dev) < 0.1) & (new_ids >= 0)
+    lut = lut0[rows % lut0.shape[0]].contiguous()
+    return ((fids, fds.contiguous(), fexp, fpas, new_ids, codes, new_pas, lut,
+             fids[:, 0].contiguous()), {**kw, "gathered": False})
+
+
 def kernel_line(cap: Capture) -> list[dict]:
     rows = []
     # ADC, the search loop's entry: lut (B,C,K), codes (N,C), ids (B,M)
@@ -4494,8 +4527,10 @@ def kernel_line(cap: Capture) -> list[dict]:
                      bound_ms=bnd[0], bound_by=bnd[1],
                      library_ms=time_ms(lambda: torch.cdist(q[:, None], vecs).square()),
                      shape=f"B={b} W={w} D={d}"))
-    # fused round, the search loop's entry (code rows gathered by id)
+    # fused round, the search loop's entry (code rows gathered by id), with
+    # fresh outputs: the loop's own output buffers (out=) are left out
     args, kw = cap.args["fused_traversal"]
+    kw = {k: kw[k] for k in ("mode", "width", "gathered")}
     fids, new_ids, lut = args[0], args[4], args[7]
     b, l = fids.shape
     m, c = new_ids.shape[1], lut.shape[1]
@@ -4518,6 +4553,31 @@ def kernel_line(cap: Capture) -> list[dict]:
                      plain_ms=time_ms(lambda: ftk.fused_traversal_round_ref(*args, **kw)),
                      bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
                      shape=f"B={b} L={l} M={m} C={c} W={w} P={p} valid_new={n_valid}"))
+    # the same kernel at the bulk cell's shape (B 10,000, L 256, M 768,
+    # about 27 live candidates a row), on the captured round's code table
+    args, kw = bulk_fused_args(args, kw)
+    fids, new_ids, lut = args[0], args[4], args[7]
+    b, l = fids.shape
+    m, c = new_ids.shape[1], lut.shape[1]
+    got = ftk.fused_traversal_round(*args, **kw)
+    want = ftk.fused_traversal_round_ref(*args, **kw)
+    err = max(float((g.float() - h.float()).abs().max()) for g, h in zip(got, want))
+    p = 1 << (l + m - 1).bit_length()
+    logp = p.bit_length() - 1
+    n_valid = int((new_ids >= 0).sum())
+    nbytes = (b * l * 10 + b * m * 5 + n_valid * c * 4 + lut.numel() * 4 + b * 4
+              + b * l * 10 + b * w * 13)
+    bnd = bound(nbytes, n_valid * c + b * (p // 2) * logp * (logp + 1) // 2)
+    rows.append(dict(name="fused_traversal_round.bulk", route="cuda",
+                     source="src/repro_torch/csrc/fused_traversal.cu",
+                     replaces="src/repro/kernels/fused_traversal.py:277",
+                     launches=0, launches_by_path={}, max_abs_err=err,
+                     ms=time_ms(lambda: ftk.fused_traversal_round(*args, **kw), reps=20),
+                     plain_ms=time_ms(lambda: ftk.fused_traversal_round_ref(*args, **kw), reps=5),
+                     bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                     note="made-up round at the bulk cell's shape; no path launches it here",
+                     shape=f"B={b} L={l} M={m} C={c} W={w} P={p} valid_new={n_valid}"))
+    del args, got, want
     # brute-force scan: lut (B,C,K), the (N,C) code table
     (lut, codes), _ = cap.args["pq_scan"]
     b, c, k = lut.shape

@@ -85,7 +85,10 @@ class EngineConfig:
     # adaptive: LRU capacity of per-filter hot sets; each materialised
     # partition holds its own cache_budget_bytes block
     cache_partitions: int = 4
-    use_fused_kernel: bool = False  # default for SearchConfig.use_fused_kernel
+    # default for SearchConfig.use_fused_kernel: None lets the device decide
+    # (core/search.py::use_fused_round); the reference runs a saved None as
+    # its unfused loop
+    use_fused_kernel: bool | None = None
     # disk tier resilience: transient read errors retry io_retries times
     # with exponential backoff from io_retry_backoff_s; a round's reads may
     # take at most io_round_deadline_s (0 = no deadline); on exhaustion

@@ -10,9 +10,23 @@ neighbor store), ``post`` (fetch everything, filter afterwards),
 The loop is lockstep over the batch: ``n_hops`` advances for every row
 on every round, and the loop runs while any row has work and every row
 is under ``max_hops`` — one host sync per round in eager PyTorch.
-``use_fused_kernel`` runs stage A as one fused round per iteration
-(``kernels.fused_traversal``) and gives the same ids, distances and
-stats as the unfused loop.
+
+**Two paths, one output.**  The unfused loop is the reference's order:
+stage A (``best_unexpanded``, ``mark_expanded``, the filter check,
+``mode_masks``), the fetch and re-rank, then ``expand`` (the new
+candidates, their ADC, ``frontier.insert``).  The fused path runs the
+frontier's upkeep as one call a round of ``kernels.fused_traversal``
+(ADC, the kill mask, the stable merge, the beam and its masks: one
+kernel launch on a CUDA device) and gives the same ids, distances and
+stats.  ``SearchConfig.use_fused_kernel`` chooses (``use_fused_round``):
+True forces the fused round and False the unfused loop; the default,
+None, lets the device decide: the fused round on a CUDA device wherever
+``fused_supported`` holds for the call's shapes (a sort width up to
+4,096, an ADC tile up to 8 MiB), the unfused loop on the CPU and for
+shapes the kernel refuses.  The fused path writes its rounds into two
+sets of outputs allocated once a call (``depth + 1`` when pipelined, the
+rounds the ring still reads), and the kernel's wrapper checks its
+arguments on the call's first two rounds only.
 
 On a CUDA device three kernels serve the loop (ADC, the re-rank, fused
 round); on the CPU their plain versions do.  The re-rank
@@ -66,6 +80,9 @@ port's own, which the reference has not (``PORT_FAMILIES``):
     ADC and the insert, or the fused call; ``sync``: the loop condition's
     host sync.  A round costs five ``perf_counter`` reads and no registry
     call;
+  * ``search.fused_rounds{mode}``: the call's rounds taken by the fused
+    round (0 on the unfused loop), beside ``search.rounds``: their ratio
+    is how often the fused path is taken;
   * ``search.scored`` (counted by ``obs.stats.record_search_stats``): new
     candidates given a PQ distance, summed on the device only when the
     caller passes ``count_scored`` (the engine does when its registry is
@@ -95,7 +112,7 @@ MODES = ("gate", "post", "early", "pre_naive", "unfiltered")
 PHASES = ("stage_a", "fetch", "rerank", "expand", "sync")
 STAGE_A, FETCH, RERANK, EXPAND, SYNC = range(len(PHASES))
 # the port's search.* families that the reference has not
-PORT_FAMILIES = ("search.rounds", "search.scored")
+PORT_FAMILIES = ("search.rounds", "search.fused_rounds", "search.scored")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +124,9 @@ class SearchConfig:
     max_hops: int = 512  # safety bound on rounds
     use_kernel: bool = False  # exact distances: pairwise tree (False) or expanded form (True)
     pipeline_depth: int = 1  # >1 needs a submit/drain store; else the synchronous loop
-    use_fused_kernel: bool = False  # stage A as one fused round per iteration
+    # the fused round (True), the unfused loop (False), or the device decides
+    # (None): see ``use_fused_round``
+    use_fused_kernel: bool | None = None
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -170,6 +189,22 @@ class _NoClock:
 
 
 _NO_CLOCK = _NoClock()
+
+
+def use_fused_round(flag: bool | None, *, device: torch.device | str, l: int, width: int,
+                    m: int, c: int, k: int) -> bool:
+    """Does the loop run its rounds through the fused round?  ``flag`` is
+    ``use_fused_kernel``: False keeps the unfused loop; True takes the fused
+    round wherever ``fused_supported`` holds for the shapes (frontier ``l``,
+    beam ``width``, ``m`` new candidates a round, ``c`` x ``k`` PQ tables);
+    None does so on a CUDA device only, and keeps the reference's unfused
+    loop elsewhere."""
+    if flag is None:
+        if torch.device(device).type != "cuda":
+            return False
+    elif not flag:
+        return False
+    return ftk.fused_supported(l=l, width=width, m=m, c=c, k=k, device=device)
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
@@ -305,6 +340,9 @@ def filtered_search(
         clock.lap(RERANK)
         return results, stats
 
+    use_fused = use_fused_round(config.use_fused_kernel, device=dev, l=L, width=W,
+                                m=W * (store.degree + r_max), c=codes.shape[1], k=lut.shape[2])
+
     def finish(results, stats, r, rounds):
         if pipelined:  # flush: retire the rounds still in flight, oldest first
             for j in range(depth - 1):
@@ -312,13 +350,10 @@ def filtered_search(
         reg = obs.default_registry()
         if reg.enabled:
             reg.counter("search.rounds", mode=mode).inc(rounds)
+            reg.counter("search.fused_rounds", mode=mode).inc(rounds if use_fused else 0)
         clock.publish(reg)
         return SearchOutput(ids=results.ids, dists=results.dists, stats=stats, visit_counts=vc,
                             n_scored=scored)
-
-    use_fused = config.use_fused_kernel and ftk.fused_supported(
-        l=L, width=W, m=W * (store.degree + r_max), c=codes.shape[1], k=lut.shape[2], device=dev
-    )
 
     def more(work):
         """The loop's condition, on the host: its one sync a round."""
@@ -353,11 +388,21 @@ def filtered_search(
             r += 1
         return finish(results, stats, r, rounds)
 
+    # the rounds' outputs, allocated once: call j writes set j % len(outs),
+    # which no round still read holds (the current round, and when
+    # pipelined the ring's depth - 1 more)
+    outs = [ftk.empty_round(b, L, W, dev) for _ in range(depth + 1 if pipelined else 2)]
+    calls = 0
+
     def fused_call(fids, fds, fexp, fpass, new_ids, new_passes):
-        return ftk.fused_traversal_round(
+        nonlocal calls
+        rnd = ftk.fused_traversal_round(
             fids, fds, fexp, fpass, new_ids, codes, new_passes, lut, entry,
-            mode=mode, width=W, gathered=False,
+            mode=mode, width=W, gathered=False, out=outs[calls % len(outs)],
+            check=calls < 2,  # round 0 (M = 0) and the first round of this call's M
         )
+        calls += 1
+        return rnd
 
     # round-0 call (M = 0): select the first beam from the entry-seeded frontier
     empty = torch.zeros((b, 0), dtype=torch.int32, device=dev)

@@ -144,15 +144,20 @@ def fused_traversal_round_ref(frontier_ids, frontier_dists, frontier_expanded, f
     )
 
 
+def empty_round(b: int, l: int, width: int, device) -> FusedRound:
+    """Uninitialised outputs of one round of ``b`` queries, for ``out=``."""
+    def empty(n, dt):
+        return torch.empty((b, n), dtype=dt, device=device)
+    return FusedRound(*(empty(l, dt) for dt in (torch.int32, torch.float32, torch.bool, torch.bool)),
+                      *(empty(width, dt) for dt in (torch.int32, torch.bool, torch.int32,
+                                                    torch.bool, torch.bool, torch.bool, torch.bool)))
+
+
 def _meta_round(args, b: int, l: int, m: int, c: int, width: int, gathered: bool) -> FusedRound:
     """The round's outputs on the meta device, its bytes charged: the
     inputs read once (of an ungathered code table, the M rows a query
     reads), the outputs written once."""
-    def empty(n, dt):
-        return torch.empty((b, n), dtype=dt, device="meta")
-    outs = FusedRound(*(empty(l, dt) for dt in (torch.int32, torch.float32, torch.bool, torch.bool)),
-                      *(empty(width, dt) for dt in (torch.int32, torch.bool, torch.int32,
-                                                    torch.bool, torch.bool, torch.bool, torch.bool)))
+    outs = empty_round(b, l, width, "meta")
     reads = list(args)
     if not gathered:
         reads[5] = args[5].new_empty((b, m, c))
@@ -166,26 +171,18 @@ _ARGS = ("frontier_ids", "frontier_dists", "frontier_expanded", "frontier_passes
          "new_codes", "new_passes", "lut", "entry")
 
 
-def fused_traversal_round(frontier_ids, frontier_dists, frontier_expanded, frontier_passes,
-                          new_ids, new_codes, new_passes, lut, entry, *, mode: str,
-                          width: int, gathered: bool = True) -> FusedRound:
-    """Batched fused round.
-
-    frontier_* (B, L); new_ids / new_passes (B, M); lut (B, C, K); entry
-    (B,).  ``gathered=True`` takes the TPU contract's gathered code rows
-    ``new_codes`` (B, M, C); ``gathered=False`` takes the (N, C) code
-    table and gathers ``new_codes[new_ids]`` inside the kernel.
-    """
-    args = (frontier_ids, frontier_dists, frontier_expanded, frontier_passes, new_ids,
-            new_codes, new_passes, lut, entry)
+def _check_round(args, out, mode: str, width: int, gathered: bool) -> None:
+    """The wrapper's contract: dtypes, one device, shapes, mode, width."""
+    lut = args[7]
     for name, t, dt in zip(_ARGS, args, _DTYPES):
         if t.dtype != dt:
             raise TypeError(f"{name}: want {dt}, got {t.dtype}")
         if t.device != lut.device:
             raise ValueError(f"{name} lies on {t.device}, lut on {lut.device}")
+    frontier_ids, new_ids, new_codes, new_passes, entry = args[0], args[4], args[5], args[6], args[8]
     b, l = frontier_ids.shape
     m = new_ids.shape[1]
-    c, k = lut.shape[1], lut.shape[2]
+    c = lut.shape[1]
     want_codes = (b, m, c) if gathered else (new_codes.shape[0], c)
     if any(t.shape != (b, l) for t in args[:4]) or new_passes.shape != (b, m) \
             or tuple(new_codes.shape) != want_codes or lut.shape[0] != b \
@@ -194,31 +191,57 @@ def fused_traversal_round(frontier_ids, frontier_dists, frontier_expanded, front
                          + ", ".join(f"{n}={tuple(t.shape)}" for n, t in zip(_ARGS, args)))
     if mode not in MODES or width < 1:
         raise ValueError(f"mode {mode!r} / width {width} not supported")
+    if out is not None:
+        want = empty_round(b, l, width, "meta")
+        for name, o, w in zip(FusedRound._fields, out, want):
+            if o.shape != w.shape or o.dtype != w.dtype or o.device != lut.device \
+                    or not o.is_contiguous():
+                raise ValueError(f"out.{name}: want a contiguous {tuple(w.shape)} {w.dtype} "
+                                 f"on {lut.device}, got {tuple(o.shape)} {o.dtype} on {o.device}")
+
+
+def fused_traversal_round(frontier_ids, frontier_dists, frontier_expanded, frontier_passes,
+                          new_ids, new_codes, new_passes, lut, entry, *, mode: str,
+                          width: int, gathered: bool = True, out: FusedRound | None = None,
+                          check: bool = True) -> FusedRound:
+    """Batched fused round.
+
+    frontier_* (B, L); new_ids / new_passes (B, M); lut (B, C, K); entry
+    (B,).  ``gathered=True`` takes the TPU contract's gathered code rows
+    ``new_codes`` (B, M, C); ``gathered=False`` takes the (N, C) code
+    table and gathers ``new_codes[new_ids]`` inside the kernel.
+
+    ``out`` (from ``empty_round``) takes the round's outputs in place of
+    new tensors and is returned; it must not share memory with an input.
+    ``check=False`` skips the argument checks, for a caller that has
+    checked arguments made the same way once (the search loop checks its
+    first two calls a search).
+    """
+    args = (frontier_ids, frontier_dists, frontier_expanded, frontier_passes, new_ids,
+            new_codes, new_passes, lut, entry)
+    if check:
+        _check_round(args, out, mode, width, gathered)
+    b, l = frontier_ids.shape
+    m = new_ids.shape[1]
+    c, k = lut.shape[1], lut.shape[2]
     if lut.device.type == "cpu":
-        return fused_traversal_round_ref(*args, mode=mode, width=width, gathered=gathered)
+        rnd = fused_traversal_round_ref(*args, mode=mode, width=width, gathered=gathered)
+        if out is None:
+            return rnd
+        for o, r in zip(out, rnd):
+            o.copy_(r)
+        return out
     if _build.is_meta(lut):
         return _meta_round(args, b, l, m, c, width, gathered)
-    if not fused_supported(l=l, width=width, m=m, c=c, k=k, device=lut.device):
-        raise ValueError(f"fused round does not support L={l} M={m} C={c} K={k} W={width}")
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("fused_traversal_round wants contiguous tensors")
-    dev = lut.device
-    outs = FusedRound(
-        frontier_ids=torch.empty((b, l), dtype=torch.int32, device=dev),
-        frontier_dists=torch.empty((b, l), dtype=torch.float32, device=dev),
-        frontier_expanded=torch.empty((b, l), dtype=torch.bool, device=dev),
-        frontier_passes=torch.empty((b, l), dtype=torch.bool, device=dev),
-        sel_ids=torch.empty((b, width), dtype=torch.int32, device=dev),
-        valid=torch.empty((b, width), dtype=torch.bool, device=dev),
-        fetch_ids=torch.empty((b, width), dtype=torch.int32, device=dev),
-        fetch_mask=torch.empty((b, width), dtype=torch.bool, device=dev),
-        tunnel_mask=torch.empty((b, width), dtype=torch.bool, device=dev),
-        result_mask=torch.empty((b, width), dtype=torch.bool, device=dev),
-        exact_mask=torch.empty((b, width), dtype=torch.bool, device=dev),
-    )
+    if check:
+        if not fused_supported(l=l, width=width, m=m, c=c, k=k, device=lut.device):
+            raise ValueError(f"fused round does not support L={l} M={m} C={c} K={k} W={width}")
+        if not all(t.is_contiguous() for t in args):
+            raise ValueError("fused_traversal_round wants contiguous tensors")
+    outs = empty_round(b, l, width, lut.device) if out is None else out
     if b == 0:  # nothing to compute: no launch, and none counted
         return outs
-    fn =_build.entry(NAME, "fused_round_launch", 20, 8)
+    fn = _build.entry(NAME, "fused_round_launch", 20, 8)
     err = fn(*(_build.ptr(t) for t in args), *(_build.ptr(t) for t in outs),
              b, l, m, c, k, width, MODES.index(mode), 0 if gathered else 1,
              _build.stream_ptr(lut))

@@ -292,9 +292,15 @@ def test_build_accepts_a_given_graph(port_built, tiny_corpus):
 
 
 def test_config_fields_are_the_references():
+    """Field for field, and every default the reference's but one:
+    ``use_fused_kernel`` is None in the port (the device decides), which
+    the reference's config takes and runs as its unfused loop."""
     assert [f.name for f in dataclasses.fields(EngineConfig)] == \
         [f.name for f in dataclasses.fields(JEngineConfig)]
-    assert dataclasses.asdict(EngineConfig()) == dataclasses.asdict(JEngineConfig())
+    port, ref = dataclasses.asdict(EngineConfig()), dataclasses.asdict(JEngineConfig())
+    assert port.pop("use_fused_kernel") is None and ref.pop("use_fused_kernel") is False
+    assert port == ref
+    assert not JEngineConfig(**dataclasses.asdict(EngineConfig())).use_fused_kernel
 
 
 def test_cached_build_serves_the_cache(tiny_corpus):

@@ -14,7 +14,8 @@ the edge of its route), the fused round on all 11 fields (the merge's edges
 included), the top-k merge on its three routes and at the contract's edges, and
 whole searches card vs CPU — on the memory tier and off an index file on
 the disk tier, synchronous and pipelined, and under scripted degraded
-reads; a serving front end on the card (searches on its dispatcher thread)
+reads; the default search (the fused round on the card) against the
+unfused loop at the benchmark's widths; a serving front end on the card (searches on its dispatcher thread)
 equal to direct search; the stats hook on card tensors equal to the CPU's;
 a telemetry-off batch launching what the bare loop launches; and a 2-rank
 gloo mesh on the card running the distributed step (sharded fetch through
@@ -34,7 +35,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import GateANNEngine, SearchConfig  # noqa: E402
+from repro_torch.core import EngineConfig, GateANNEngine, SearchConfig  # noqa: E402
 from repro_torch.core import pq as tpqm  # noqa: E402
 from repro_torch.core import search as tsearch  # noqa: E402
 from repro_torch.data import make_bigann_like, make_queries, uniform_labels  # noqa: E402
@@ -420,6 +421,52 @@ def test_card_search_equals_cpu(cuda):
             b = on_cpu.search(q, filter_kind=kind, filter_params=params, search_config=cfg)
             for g, w in zip((a.ids, a.dists, *a.stats), (b.ids, b.dists, *b.stats)):
                 assert torch.equal(g.cpu(), w), (mode, fused)
+
+
+def bench_width_engine(cuda):
+    """An index of the benchmark's widths on the card: N = 20,000, D = 128,
+    R = 64 nearest, PQ 32 x 256 (books from base rows, codes by
+    ``encode_pq``), r_max 32, 10 uniform labels; and 256 queries."""
+    n, d = 20_000, 128
+    x = make_bigann_like(n, d, seed=7)
+    xt = torch.from_numpy(x).to(cuda)
+    nbrs = torch.cat([torch.topk(torch.cdist(xt[i:i + 2048], xt), 65, largest=False).indices[:, 1:]
+                      for i in range(0, n, 2048)]).int().cpu().numpy()
+    rows = np.random.default_rng(8).choice(n, 256, replace=False)
+    books = np.ascontiguousarray(x[rows].reshape(256, 32, 4).transpose(1, 0, 2))
+    codec = tpqm.PQCodec(torch.from_numpy(books).to(cuda), 32, 256)
+    codes = tpqm.encode_pq(codec, xt).cpu().numpy()
+    eng = GateANNEngine.from_arrays(x, nbrs, books, codes, 0,
+                                    {"label": uniform_labels(n, 10, seed=9)},
+                                    EngineConfig(r_max=32, pq_chunks=32), device=cuda)
+    return eng, make_queries(x, 256, seed=10)
+
+
+def test_card_default_takes_the_fused_round(cuda):
+    """At the benchmark's widths (L 256 gate on a 10% label, as the bulk
+    cell; L 64 unfiltered), the default SearchConfig runs the fused round
+    on the card and gives the unfused loop's ids, distances and six stats
+    bit for bit; only the default call launches the fused kernel."""
+    eng, q = bench_width_engine(cuda)
+    labels = np.random.default_rng(11).integers(0, 10, q.shape[0]).astype(np.int32)
+    for mode, l, kind, params in (("gate", 256, "label", labels),
+                                  ("gate", 64, None, None)):
+        assert tsearch.use_fused_round(None, device=cuda, l=l, width=8, m=8 * (64 + 32),
+                                       c=32, k=256)
+        launched = {}
+        outs = {}
+        for name, flag in (("unfused", False), ("default", None)):
+            cfg = SearchConfig(mode=mode, search_l=l, beam_width=8, result_k=10,
+                               use_fused_kernel=flag)
+            before = _build.LAUNCHES["fused_traversal"]
+            outs[name] = eng.search(q, filter_kind=kind, filter_params=params, search_config=cfg)
+            torch.cuda.synchronize()
+            launched[name] = _build.LAUNCHES["fused_traversal"] - before
+        a, b = outs["default"], outs["unfused"]
+        for g, w in zip((a.ids, a.dists, *a.stats), (b.ids, b.dists, *b.stats)):
+            assert torch.equal(g, w), (mode, l)
+        assert launched["unfused"] == 0, (mode, l)
+        assert launched["default"] == int(a.stats.n_hops[0]) + 1 > 1, (mode, l)
 
 
 def test_card_pq_scan_bit_identical(cuda):
