@@ -276,6 +276,7 @@ from repro_torch.core import pq as pqm  # noqa: E402
 from repro_torch.data import make_bigann_like, make_queries, uniform_labels  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_traversal as ftk  # noqa: E402
+from repro_torch.kernels import host_gather as hgk  # noqa: E402
 from repro_torch.kernels import l2_dist as l2k  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import pq_lookup as pqk  # noqa: E402
@@ -320,6 +321,7 @@ from test_torch_cuda import bare_search, device_launches  # noqa: E402
 MODES = ("gate", "post", "early", "pre_naive", "unfiltered")
 # H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+LINK_BYTES_PER_S = 64e9  # PCIe 5.0 x16, host to device
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
 SPIN_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock: cycles for torch.cuda._sleep
@@ -937,7 +939,10 @@ class Capture:
                 self.adc_rounds.append(args[2].clone())
             at = self.at.get(key, (self.at_call,))
             if self.calls[key] in at:
-                clone = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+                # pinned host records are kept as they are: a clone would be
+                # neither pinned nor small
+                clone = [a.clone() if isinstance(a, torch.Tensor) and not a.is_pinned() else a
+                         for a in args]
                 n = at.index(self.calls[key])
                 self.args[key if n == 0 else f"{key}_{n + 1}"] = (clone, dict(kwargs))
             return real(*args, **kwargs)
@@ -1034,9 +1039,9 @@ def search_phase(eng, q, targets, gt, card: str, cap: Capture) -> dict:
     cap.launches.update({name: run[4] for name, run in runs.items()})
     for path in ("gate_unfused", "post"):
         require_launches(cap, path, ("pq_lookup", "rerank"),
-                         ("fused_traversal", "l2_dist", "plain_merges"))
+                         ("fused_traversal", "l2_dist", "plain_merges", "host_gather"))
     require_launches(cap, "gate_fused", ("pq_lookup", "rerank", "fused_traversal"),
-                     ("l2_dist", "plain_merges"))
+                     ("l2_dist", "plain_merges", "host_gather"))
     n_batches = N_QUERIES // BATCH
     for path in configs:
         counts = cap.launches[path]
@@ -1381,7 +1386,8 @@ def ssd_phase(path: str, q, targets, mem_runs: dict, card: str, cap: Capture) ->
             require(io["overlapped_rounds"] > 0, f"{name}: no round overlapped another's read")
         fused = cfg.use_fused_kernel
         require_launches(cap, name, ("pq_lookup", "rerank") + (("fused_traversal",) if fused else ()),
-                         ("l2_dist", "plain_merges") + (() if fused else ("fused_traversal",)))
+                         ("l2_dist", "plain_merges", "host_gather")
+                         + (() if fused else ("fused_traversal",)))
         summary[name] = {
             "qps": N_QUERIES / float(lat.sum()), "p50_batch_ms": float(np.percentile(lat, 50) * 1e3),
             "p99_batch_ms": float(np.percentile(lat, 99) * 1e3),
@@ -1522,7 +1528,8 @@ def cache_phase(eng, path: str, q, targets, mem_runs: dict, card: str, cap) -> d
         cap.launches[name] = run[4]
         fused = cfg.use_fused_kernel
         require_launches(cap, name, ("pq_lookup", "rerank") + (("fused_traversal",) if fused else ()),
-                         ("l2_dist", "plain_merges") + (() if fused else ("fused_traversal",)))
+                         ("l2_dist", "plain_merges", "host_gather")
+                         + (() if fused else ("fused_traversal",)))
         r = summary[name] = {"hot_set_s": sel_s, "cached_records": store.n_cached,
                              "device_bytes": store.device_bytes(), **stats_summary(run),
                              **(extra or {})}
@@ -4001,11 +4008,11 @@ def profile_batch(run, p50_ms: float, top: int = 8, parts: tuple = ()) -> dict:
 # ------------------------------------------------------------ the host tier
 def host_phase(path: str, q, targets, mem_runs: dict, card: str, cap: Capture) -> dict:
     """The memory tier's queries on the host tier (``store_tier="host"``:
-    the records in pinned host memory, gathered on the host and uploaded
-    through ``PinnedStaging``), each run equal to the memory tier bit for
-    bit; one gate batch profiled, with the bytes it moved host to device."""
+    the records in pinned host memory, the live rows of each round read
+    over the link by ``host_gather``), each run equal to the memory tier bit
+    for bit; one gate batch profiled, with the bytes it moved host to
+    device (the store's ``store.fetch_bytes``)."""
     from repro_torch.store import HostOffloadRecordStore
-    from repro_torch.store.staging import PinnedStaging
 
     t0 = time.perf_counter()
     eng = GateANNEngine.load(path, store_tier="host")
@@ -4026,6 +4033,12 @@ def host_phase(path: str, q, targets, mem_runs: dict, card: str, cap: Capture) -
         "host_post": (SearchConfig(mode="post", use_fused_kernel=False, **SEARCH), "post"),
     }
     summary = {"load_s": load_s, "pinned_bytes": pinned}
+    cap.wrap(hgk, "host_gather", "host_gather")  # a mid-search round's fetch, for the kernel line
+    try:
+        eng.search(q[:BATCH], filter_kind="label", filter_params=targets[:BATCH],
+                   search_config=configs["host_gate_unfused"][0])
+    finally:
+        cap.__exit__()
     for name, (cfg, mem_name) in configs.items():
         eng.search(q[:BATCH], filter_kind="label", filter_params=targets[:BATCH],
                    search_config=cfg)  # warm-up, untimed
@@ -4033,7 +4046,8 @@ def host_phase(path: str, q, targets, mem_runs: dict, card: str, cap: Capture) -
         cap.launches[name] = run[4]
         same_run(run, mem_runs[mem_name], f"{name} vs memory tier {mem_name}")
         fused = cfg.use_fused_kernel
-        require_launches(cap, name, ("pq_lookup", "rerank") + (("fused_traversal",) if fused else ()),
+        require_launches(cap, name, ("pq_lookup", "rerank", "host_gather")
+                         + (("fused_traversal",) if fused else ()),
                          ("l2_dist", "plain_merges") + (() if fused else ("fused_traversal",)))
         lat, st = run[3], run[2]
         summary[name] = {"qps": N_QUERIES / float(lat.sum()),
@@ -4044,33 +4058,27 @@ def host_phase(path: str, q, targets, mem_runs: dict, card: str, cap: Capture) -
         log("host", f"{name}: QPS {r['qps']:.1f}  batch p50 {r['p50_batch_ms']:.2f} ms p99 "
             f"{r['p99_batch_ms']:.2f} ms  mean n_ios {r['mean_n_ios']:.2f}  launches "
             f"{json.dumps(run[4])}; == memory tier {mem_name} (ids, dists, six stats) on {card}")
-    # one gate batch: the bytes its fetches upload, and its rounds
-    uploads, real_upload = [0, 0], PinnedStaging.upload
-
-    def counted(self, buf):
-        uploads[0] += buf.numel() * buf.element_size()
-        uploads[1] += 1
-        return real_upload(self, buf)
-
+    # one gate batch: the bytes its fetches moved, and its rounds
     cfg = configs["host_gate_unfused"][0]
-    PinnedStaging.upload = counted
-    try:
+    reg = obs.MetricsRegistry(enabled=True)
+    with obs.use_registry(reg):
         out = eng.search(q[:BATCH], filter_kind="label", filter_params=targets[:BATCH],
                          search_config=cfg)
-        torch.cuda.synchronize()
-    finally:
-        PinnedStaging.upload = real_upload
     rounds = int(out.stats.n_hops.max())
+    moved = int(reg.family_total("store.fetch_bytes"))
+    require(reg.family_total("store.fetch_rows") == reg.family_total("search.ios"),
+            "host tier: rows read over the link != search.ios")
     gate = summary["host_gate_unfused"]
-    gate["h2d_bytes_batch"], gate["h2d_copies_batch"], gate["rounds_batch"] = uploads[0], uploads[1], rounds
-    gate["h2d_bytes_round"] = uploads[0] / rounds
+    gate["h2d_bytes_batch"], gate["rounds_batch"] = moved, rounds
+    gate["h2d_bytes_round"] = moved / rounds
     gate["profile"] = profile_batch(
         lambda: eng.search(q[:BATCH], filter_kind="label", filter_params=targets[:BATCH],
                            search_config=cfg), gate["p50_batch_ms"])
     prof = gate["profile"]
-    log("host", f"host_gate_unfused, one batch of {BATCH}: {uploads[0]:,} B host to device in "
-        f"{uploads[1]} copies over {rounds} rounds ({gate['h2d_bytes_round']:,.0f} B a round: "
-        f"a round's W = {SEARCH['beam_width']} records a query, {DIM} f32 + {DEGREE} i32 each); "
+    log("host", f"host_gate_unfused, one batch of {BATCH}: {moved:,} B host to device "
+        f"over {rounds} rounds ({gate['h2d_bytes_round']:,.0f} B a round: "
+        f"the live rows of a round's W = {SEARCH['beam_width']} a query, {DIM} f32 + {DEGREE} "
+        f"i32 each); "
         f"profiled: {prof['device_busy_ms']:.2f} ms of kernels, {prof['device_launches']} launches, "
         f"busy {prof['device_busy_share']:.3f} of the unprofiled p50 {gate['p50_batch_ms']:.2f} ms "
         f"on {card}")
@@ -4451,6 +4459,37 @@ def bulk_fused_args(args, kw, b: int = 10_000, l: int = 256, m: int = 768, live:
              fids[:, 0].contiguous()), {**kw, "gathered": False})
 
 
+def host_gather_row(cap: Capture) -> dict:
+    """The host tier's fetch on a captured round's ids: the live rows read
+    over the link from the pinned records, the whole (B, W) output written
+    on the card.  Plain: the fetch before the kernel (ids to the host, the
+    host gather, the copy up); bound: the live rows' bytes at the link's
+    peak, or the output's in HBM if longer."""
+    vecs_h, nbrs_h, ids = cap.args["host_gather"][0][:3]
+    b, w = ids.shape
+    d, deg = vecs_h.shape[1], nbrs_h.shape[1]
+    n_live = int((ids >= 0).sum())
+    got = hgk.host_gather(vecs_h, nbrs_h, ids)
+    want = hgk.host_gather_ref(vecs_h, nbrs_h, ids.cpu())
+    err = max(float((g.cpu() - h).abs().max()) for g, h in zip(got, want))
+
+    def plain():
+        return [t.to(ids.device) for t in hgk.host_gather_ref(vecs_h, nbrs_h, ids.cpu())]
+
+    link_ms = n_live * (d + deg) * 4 / LINK_BYTES_PER_S * 1e3
+    hbm_ms = (b * w * (d + deg) * 4 + b * w * 4) / HBM_BYTES_PER_S * 1e3
+    return dict(name="host_gather", route="cuda", source="src/repro_torch/csrc/host_gather.cu",
+                replaces=None, launches=total(cap, "host_gather"),
+                launches_by_path=by_path(cap, "host_gather"), max_abs_err=err,
+                ms=time_ms(lambda: hgk.host_gather(vecs_h, nbrs_h, ids)),
+                plain_ms=time_ms(plain, reps=10),
+                bound_ms=max(link_ms, hbm_ms),
+                bound_by="link bytes" if link_ms >= hbm_ms else "bytes",
+                bound_link_ms=link_ms, bound_hbm_ms=hbm_ms, library_ms=None,
+                library_note="no one PyTorch call reads mapped host memory",
+                shape=f"B={b} W={w} D={d} R={deg} live_slots={n_live} records={vecs_h.shape[0]}")
+
+
 def kernel_line(cap: Capture) -> list[dict]:
     rows = []
     # ADC, the search loop's entry: lut (B,C,K), codes (N,C), ids (B,M)
@@ -4679,6 +4718,7 @@ def kernel_line(cap: Capture) -> list[dict]:
                      launches_by_path=by_path(cap, "topk_merge"), **first,
                      max_abs_err_second_level=second.pop("max_abs_err"), second_level=second,
                      other_shapes=routes))
+    rows.append(host_gather_row(cap))
     for r in rows:
         require(r["max_abs_err"] == 0.0 and r.get("max_abs_err_second_level", 0.0) == 0.0,
                 f"{r['name']}: kernel differs from its plain version")

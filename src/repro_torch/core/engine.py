@@ -14,7 +14,9 @@ predicate and any mode.  The engine owns the storage tiers of §3:
   slow tier:              the record store (full vectors + full adjacency),
                           by ``EngineConfig.store_tier``:
                             "memory" — on the device (``InMemoryRecordStore``)
-                            "host"   — pinned host memory (``HostOffloadRecordStore``)
+                            "host"   — pinned host memory (``HostOffloadRecordStore``;
+                                       on the card only the live rows, those
+                                       the filter gate passed, cross the link)
                             "disk"   — read off the index file with measured
                                        I/O (``DiskRecordStore``)
 
@@ -32,8 +34,10 @@ counts one ``search.dispatch{mode,tier,pipelined}`` and runs inside an
 ``engine.search`` span; with the registry enabled it also folds the
 batch's stats into the ``search.*`` families, which copies them to the
 host (one copy, so on the card the span covers the device work), and has
-the loop count the nodes it scores (``search.scored``).  With telemetry
-off a search adds no sync, no copy and no device launch.
+the loop count the nodes it scores (``search.scored``).  On the host tier
+the record store then publishes the call's fetches (``store.fetch`` span,
+``store.fetch_rows`` / ``store.fetch_bytes``).  With telemetry off a
+search adds no sync, no copy and no device launch.
 """
 from __future__ import annotations
 
@@ -526,6 +530,9 @@ class GateANNEngine:
                     obs.stats.record_search_stats(reg, out.stats, mode=cfg.mode,
                                                   tier=self.config.store_tier,
                                                   scored=out.n_scored)
+                slow = self.slow_tier()
+                if isinstance(slow, HostOffloadRecordStore):  # its fetches, once a call
+                    slow.publish(reg)
         except BaseException:
             # a failure with pipelined rounds in flight: their tokens would
             # pin reader slots until close(), so drain or cancel them here
@@ -553,12 +560,17 @@ class GateANNEngine:
         return False
 
     # -- measured I/O ------------------------------------------------------
-    def measured_store(self) -> DiskRecordStore | None:
-        """The slow tier under any cache tiers if it measures real I/O (the
-        disk tier), else None."""
+    def slow_tier(self):
+        """The record store under any cache tiers."""
         store = self.record_store
         while isinstance(store, CACHE_TIERS):
             store = store.backing
+        return store
+
+    def measured_store(self) -> DiskRecordStore | None:
+        """The slow tier under any cache tiers if it measures real I/O (the
+        disk tier), else None."""
+        store = self.slow_tier()
         return store if isinstance(store, DiskRecordStore) else None
 
     def io_counters(self) -> dict:

@@ -39,7 +39,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("pq_lookup", "l2_dist", "fused_traversal", "topk_merge")
+SOURCES = ("pq_lookup", "l2_dist", "fused_traversal", "topk_merge", "host_gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

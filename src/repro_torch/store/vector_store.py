@@ -10,25 +10,30 @@ sector).  Three tiers live here:
     process group of a mesh (``launch/mesh.py``); a fetch is a masked
     local gather and one ``all_reduce`` over that group, the reference's
     ``psum`` over ``model``;
-  * ``HostOffloadRecordStore`` — records in pinned host memory; a fetch
-    gathers the beam's rows on the host and copies them to the card
-    through a pinned staging buffer.  Where the reference falls back
-    silently to an in-memory store when its backend has no pinned host
-    memory, the port pins or raises.  On the CPU it is a CPU tensor store.
+  * ``HostOffloadRecordStore`` — records in pinned host memory, GateANN's
+    slow tier where the card has no SSD beside it; on the card a fetch is
+    one ``kernels.host_gather`` launch that reads only the live rows (the
+    ones the filter gate passed) through the records' device-mapped
+    address, so only live rows cross the link, with no host sync and no
+    host gather.  Where the reference falls back silently to an in-memory
+    store when its backend has no pinned host memory, the port pins or
+    raises.  On the CPU it is a CPU tensor store.
 
 The disk tier is ``store/disk.py``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
+from repro_torch.kernels import host_gather as hgk
 from repro_torch.store.format import record_nbytes
-from repro_torch.store.staging import PinnedStaging
 
 
 def is_lazy_host(a) -> bool:
@@ -142,12 +147,39 @@ class ShardedRecordStore:
         return v, g, rows
 
 
+class _FetchTally:
+    """The host tier's fetches since the engine last published them: their
+    host seconds (while the process tracer is on), and the rows already
+    published."""
+
+    __slots__ = ("seconds", "published")
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.published = 0
+
+
 @dataclasses.dataclass(frozen=True)
 class HostOffloadRecordStore:
+    """Records in host memory, pinned when ``device`` is a card.
+
+    Telemetry, published once a call by ``publish`` (the engine calls it
+    after the call's stats copy): a ``store.fetch{tier=host}`` span of the
+    call's fetches' host seconds while the process tracer is on, and with
+    the registry enabled the counters ``store.fetch_rows{tier=host}`` and
+    ``store.fetch_bytes{tier=host}``: the rows the tier moved to the device
+    (counted where they are read, by the kernel on the card, in the fetches
+    made while the registry is enabled) and their bytes, D x 4 + R x 4 a
+    row.
+    """
+
     vectors: torch.Tensor  # (N, D) float32 on the host, pinned when device is a card
     neighbors: torch.Tensor  # (N, R) int32 on the host, pinned likewise
     device: torch.device
-    staging: PinnedStaging
+    # () int64 on the device: rows fetched so far with the registry enabled
+    rows_read: torch.Tensor
+    tally: _FetchTally = dataclasses.field(default_factory=_FetchTally, compare=False,
+                                           repr=False)
 
     @classmethod
     def create(cls, vectors, neighbors, device) -> "HostOffloadRecordStore":
@@ -158,24 +190,44 @@ class HostOffloadRecordStore:
         nbrs = torch.from_numpy(np.array(neighbors, dtype=np.int32))
         if device.type == "cuda":
             vecs, nbrs = vecs.pin_memory(), nbrs.pin_memory()
-        return cls(vectors=vecs, neighbors=nbrs, device=device, staging=PinnedStaging(device))
+        return cls(vectors=vecs, neighbors=nbrs, device=device,
+                   rows_read=torch.zeros((), dtype=torch.int64, device=device))
 
     @property
     def degree(self) -> int:
         return int(self.neighbors.shape[1])
 
-    def _to_device(self, rows: torch.Tensor) -> torch.Tensor:
-        buf = self.staging.take(tuple(rows.shape), rows.dtype)
-        buf.copy_(rows)
-        return self.staging.upload(buf)
+    @property
+    def row_bytes(self) -> int:
+        """Bytes one fetched record moves: its vector and its adjacency."""
+        return self.vectors.shape[1] * 4 + self.degree * 4
 
     def fetch(self, ids: torch.Tensor):
-        """(B, W) ids on the device -> records gathered on the host, on the
-        device; ids < 0 give zero vectors and -1 neighbor rows."""
-        vecs, nbrs = _gather_rows(self.vectors, self.neighbors, ids.cpu())
-        if self.device.type == "cpu":
-            return vecs, nbrs
-        return self._to_device(vecs), self._to_device(nbrs)
+        """(B, W) ids on the device -> (vecs (B, W, D), nbrs (B, W, R)) on
+        the device; ids < 0 give zero vectors and -1 neighbor rows."""
+        rows = self.rows_read if obs.default_registry().enabled else None
+        timed = obs.trace.default_tracer().enabled
+        t0 = time.perf_counter() if timed else 0.0
+        out = hgk.host_gather(self.vectors, self.neighbors, ids, rows)
+        if timed:
+            self.tally.seconds += time.perf_counter() - t0
+        return out
+
+    def publish(self, reg) -> None:
+        """Once a call, after its stats copy: the span of its fetches, and
+        with ``reg`` enabled the rows and bytes fetched since the last
+        publish.  Reading the device count then waits for nothing: the
+        stats copy has waited for the call's work."""
+        t = self.tally
+        if t.seconds:
+            obs.trace.record("store.fetch", t.seconds, tier="host")
+            t.seconds = 0.0
+        if not reg.enabled:
+            return
+        rows = int(self.rows_read)
+        new, t.published = rows - t.published, rows
+        reg.counter("store.fetch_rows", tier="host").inc(new)
+        reg.counter("store.fetch_bytes", tier="host").inc(new * self.row_bytes)
 
     def record_bytes(self) -> int:
         n, d = self.vectors.shape

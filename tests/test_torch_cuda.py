@@ -20,7 +20,9 @@ equal to direct search; the stats hook on card tensors equal to the CPU's;
 a telemetry-off batch launching what the bare loop launches; and a 2-rank
 gloo mesh on the card running the distributed step (sharded fetch through
 gloo on CUDA tensors, the ADC and re-rank kernels once a hop) equal to the
-same mesh on the CPU and to the single-host search; the LM's smoke
+same mesh on the CPU and to the single-host search; the host tier's
+fetch (``host_gather``) against ``_gather_rows``, the host-tier engine
+against the memory tier, and no host sync in the fetch; the LM's smoke
 configs, every layer kind (prefill, greedy decode), their w8a16 and int8
 KV decode, one train step of each kind, and ``RAGServer.generate`` on
 the card equal to the CPU in float32.  Within
@@ -423,10 +425,11 @@ def test_card_search_equals_cpu(cuda):
                 assert torch.equal(g.cpu(), w), (mode, fused)
 
 
-def bench_width_engine(cuda):
+def bench_width_engine(cuda, tier="memory"):
     """An index of the benchmark's widths on the card: N = 20,000, D = 128,
     R = 64 nearest, PQ 32 x 256 (books from base rows, codes by
-    ``encode_pq``), r_max 32, 10 uniform labels; and 256 queries."""
+    ``encode_pq``), r_max 32, 10 uniform labels, the records on ``tier``;
+    and 256 queries."""
     n, d = 20_000, 128
     x = make_bigann_like(n, d, seed=7)
     xt = torch.from_numpy(x).to(cuda)
@@ -438,7 +441,8 @@ def bench_width_engine(cuda):
     codes = tpqm.encode_pq(codec, xt).cpu().numpy()
     eng = GateANNEngine.from_arrays(x, nbrs, books, codes, 0,
                                     {"label": uniform_labels(n, 10, seed=9)},
-                                    EngineConfig(r_max=32, pq_chunks=32), device=cuda)
+                                    EngineConfig(r_max=32, pq_chunks=32, store_tier=tier),
+                                    device=cuda)
     return eng, make_queries(x, 256, seed=10)
 
 
@@ -467,6 +471,143 @@ def test_card_default_takes_the_fused_round(cuda):
             assert torch.equal(g, w), (mode, l)
         assert launched["unfused"] == 0, (mode, l)
         assert launched["default"] == int(a.stats.n_hops[0]) + 1 > 1, (mode, l)
+
+
+# ------------------------------------------------------------ the host tier
+HOST_GATHER_CASES = {  # name -> (N, D, R, B, W, ids kind)
+    "all_dead": (300, 128, 64, 64, 8, "dead"),
+    "all_live": (300, 128, 64, 64, 8, "live"),
+    "mixed": (300, 128, 64, 64, 8, "mixed"),
+    "ragged": (300, 128, 64, 3, 5, "mixed"),  # 15 slots: not a multiple of the block
+    "ends": (300, 128, 64, 4, 8, "ends"),  # ids 0 and N - 1
+}
+HOST_GATHER_REFUSED = {  # name -> (N, D, R, offset): records 16-byte words cannot read
+    "odd_widths": (300, 7, 13, False),
+    "unaligned": (300, 128, 64, True),  # a view one element into its storage
+}
+
+
+def host_records(n, d, r, seed, offset=False):
+    """Pinned (N, D) float32 records (±0.0, ±inf and NaN among them) and
+    (N, R) int32 rows; ``offset``: views one element into their storage."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n + 1, d)).astype(np.float32)
+    x[0, :3] = (-0.0, np.inf, np.nan)
+    g = rng.integers(-1, n, size=(n + 1, r)).astype(np.int32)
+    x, g = torch.from_numpy(x).pin_memory(), torch.from_numpy(g).pin_memory()
+    if offset:
+        return x.view(-1)[1:1 + n * d].view(n, d), g.view(-1)[1:1 + n * r].view(n, r)
+    return x[:n], g[:n]
+
+
+@pytest.mark.parametrize("case", list(HOST_GATHER_CASES))
+def test_card_host_gather_bit_identical(cuda, case):
+    """The host tier's kernel == ``_gather_rows`` over the same records on
+    the card, bit for bit, and it counts the live ids it read."""
+    from repro_torch.kernels import host_gather as thg
+    from repro_torch.store.vector_store import _gather_rows
+
+    n, d, r, b, w, kind = HOST_GATHER_CASES[case]
+    vecs, nbrs = host_records(n, d, r, seed=40)
+    rng = np.random.default_rng(41)
+    ids = rng.integers(0, n, size=(b, w)).astype(np.int32)
+    if kind == "dead":
+        ids[:] = -1
+    elif kind == "mixed":
+        ids[rng.random((b, w)) < 0.9] = -1
+    elif kind == "ends":
+        ids[:, ::2], ids[:, 1::2] = 0, n - 1
+        ids[0, 0] = -1
+    tids = torch.from_numpy(ids).to(cuda)
+    rows = torch.zeros((), dtype=torch.int64, device=cuda)
+    before = _build.LAUNCHES["host_gather"]
+    got = thg.host_gather(vecs, nbrs, tids, rows)
+    want = _gather_rows(vecs.contiguous().to(cuda), nbrs.contiguous().to(cuda), tids)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):  # as bits: NaN rows compare equal
+        assert g_.shape == w_.shape, case
+        assert torch.equal(g_.view(torch.int32), w_.view(torch.int32)), case
+    assert int(rows) == int((ids >= 0).sum())
+    assert _build.LAUNCHES["host_gather"] == before + 1
+
+
+@pytest.mark.parametrize("case", list(HOST_GATHER_REFUSED))
+def test_card_host_gather_refuses_what_it_cannot_read(cuda, case):
+    """Widths that are not multiples of 4, or records that do not start on
+    a 16-byte boundary, are refused with the reason before any launch."""
+    from repro_torch.kernels import host_gather as thg
+
+    n, d, r, offset = HOST_GATHER_REFUSED[case]
+    vecs, nbrs = host_records(n, d, r, seed=40, offset=offset)
+    ids = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    before = _build.LAUNCHES["host_gather"]
+    with pytest.raises(ValueError, match="16-byte"):
+        thg.host_gather(vecs, nbrs, ids)
+    assert _build.LAUNCHES["host_gather"] == before
+
+
+@pytest.mark.parametrize("l", [64, 256])
+def test_card_host_tier_equals_memory_tier(cuda, l):
+    """At the benchmark's widths, gate on a 10% label through the fused
+    round: the host tier gives the memory tier's ids, distances and six
+    stats bit for bit, one ``host_gather`` launch a round, and the rows it
+    read over the link are ``search.ios``."""
+    from repro_torch import obs
+
+    mem, q = bench_width_engine(cuda)
+    host, _ = bench_width_engine(cuda, "host")
+    labels = np.random.default_rng(11).integers(0, 10, q.shape[0]).astype(np.int32)
+    cfg = SearchConfig(mode="gate", search_l=l, beam_width=8, result_k=10)
+    kw = dict(filter_kind="label", filter_params=labels, search_config=cfg)
+    want = mem.search(q, **kw)
+    reg = obs.MetricsRegistry(enabled=True)
+    before = dict(_build.LAUNCHES)
+    with obs.use_registry(reg):
+        got = host.search(q, **kw)
+    for g_, w_ in zip((got.ids, got.dists, *got.stats), (want.ids, want.dists, *want.stats)):
+        assert torch.equal(g_, w_), l
+    rounds = int(got.stats.n_hops[0])
+    assert _build.LAUNCHES["host_gather"] - before.get("host_gather", 0) == rounds
+    assert _build.LAUNCHES["fused_traversal"] - before.get("fused_traversal", 0) == rounds + 1
+    assert reg.family_total("store.fetch_rows") == reg.family_total("search.ios") \
+        == int(got.stats.n_ios.sum()) > 0
+    assert reg.family_total("store.fetch_bytes") == reg.family_total("store.fetch_rows") * 768
+
+
+@pytest.mark.parametrize("counted", [False, True], ids=["registry_off", "registry_on"])
+def test_card_host_fetch_makes_no_sync(cuda, counted):
+    """A host-tier fetch on the card syncs nothing with the host, counting
+    its rows or not: no copy of the ids, no wait."""
+    from repro_torch import obs
+    from repro_torch.store import HostOffloadRecordStore
+
+    vecs, nbrs = host_records(500, 128, 64, seed=42)
+    store = HostOffloadRecordStore.create(vecs, nbrs, cuda)
+    ids = torch.randint(-1, 500, (32, 8), dtype=torch.int32, device=cuda)
+    store.fetch(ids)  # the library built and loaded
+    torch.cuda.synchronize()
+    with obs.use_registry(obs.MetricsRegistry(enabled=counted)):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = store.fetch(ids)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert int(store.rows_read) == (int((ids >= 0).sum()) if counted else 0)
+    assert torch.equal(out[1], torch.where(ids[..., None] >= 0, nbrs.to(cuda)[ids.long()], -1))
+
+
+def test_card_unpinned_store_raises(cuda):
+    """Records in pageable host memory are refused with the reason, not
+    copied another way."""
+    from repro_torch.store import HostOffloadRecordStore
+
+    store = HostOffloadRecordStore(vectors=torch.zeros((50, 8)),
+                                   neighbors=torch.zeros((50, 4), dtype=torch.int32),
+                                   device=cuda, rows_read=torch.zeros((), dtype=torch.int64,
+                                                                      device=cuda))
+    assert not store.vectors.is_pinned()
+    with pytest.raises(ValueError, match="pinned"):
+        store.fetch(torch.zeros((2, 2), dtype=torch.int32, device=cuda))
 
 
 def test_card_pq_scan_bit_identical(cuda):

@@ -171,7 +171,7 @@ def test_entry_arities_match_the_sources():
         for sym, n_ptrs, n_ints, no_stream in re.findall(
                 r'entry\(\w+, "(\w+)", (\d+), (\d+)(, stream=False)?\)', py.read_text()):
             declared[sym] = (int(n_ptrs), int(n_ints), not no_stream)
-    assert set(declared) == set(sigs) and len(sigs) == 10
+    assert set(declared) == set(sigs) and len(sigs) == 11
     assert declared == sigs
 
 
